@@ -7,22 +7,34 @@ Phases, each printing one JSON line with its seconds; any failure exits
 non-zero:
 
 1. device + build: the card's name and power limit (``nvidia-smi``), and
-   the hand-written CUDA kernel built from ``csrc/``.
-2. kernel vs plain: the kernel against its plain PyTorch version on the
-   card, TF32 off, with kernel, plain and library (``F.conv1d``) times, at
-   the main path's shapes (every dilation at the interpolation dispatch's
-   [128, 17477, 128]) and at edge cases.
-3. main path at full width: ``MixingStyleTransfer.transfer_song_pcm`` with
-   the default FXencoder and MixFXcloner (random weights from a seed),
-   ``normalize_input=False``, in float32, bfloat16 and interpolation mode,
-   under PyTorch's default TF32 flags as the CLI runs it (the engine turns
-   TF32 off in its own forward passes); each run's kernel launches are
-   counted, and each float32 run's converter dispatch is held against the
-   same weights and inputs run block by block through the kernel's plain
-   version.
-4. CLI: ``python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer``
-   on a synthetic song directory.
-5. the ``kernels`` line, then the last line
+   the hand-written CUDA kernels built from ``csrc/``, one nvcc per source,
+   all started together.
+2. K1 vs plain: the fused TCN-block kernel against its plain PyTorch version
+   on the card, TF32 off, with kernel, plain and library (``F.conv1d``)
+   times, at the main path's shapes (every dilation at the interpolation
+   dispatch's [128, 17477, 128]) and at edge cases.
+3. K2 vs plain: the compressor-envelope kernel against its plain version at
+   [1024, 65536] and [8, 65536] with per-lane parameters from the
+   normalizer's candidate grids, ragged L and T, slabs carried, and the main
+   path's own launches: the sweep's three slabs [1024, 262144],
+   [1024, 262144], [1024, 131072] with the carry, and the final
+   [8, 655360]; kernel and plain times at [1024, 262144], the kernel's at
+   [8, 655360].
+4. main path at full width: ``MixingStyleTransfer.transfer_song_pcm`` with
+   the default FXencoder and MixFXcloner (random weights from a seed): with
+   ``normalize_input=False`` in float32, bfloat16 and interpolation mode,
+   then with FX normalization (the default ``NormalizationConfig`` and the
+   port's feature file) in float32 and interpolation mode, under PyTorch's
+   default TF32 flags as the CLI runs it (the engine turns TF32 off in its
+   own forward passes); each run's kernel launches are counted, and each
+   float32 run's converter dispatch is held against the same weights and
+   inputs run block by block through K1's plain version.
+5. normalizer, card vs CPU: ``normalize_device`` on the main path's
+   2^19-sample song on the card (K2, cuFFT) and on the CPU (plain
+   versions): the same compression choices, stems within 1e-4.
+6. CLI: ``python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer``
+   on a synthetic song directory, without and with FX normalization.
+7. the ``kernels`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card and the package beside it: without either it exits
@@ -38,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -55,6 +68,18 @@ HBM_RATE = 3.35e12     # H100 SXM HBM3 bytes/s
 F32_TOL = 1e-4         # max|kernel - plain| / max|plain|, float32
 BF16_TOL = 2e-2        # same, bf16 kernel vs float32 plain on bf16-rounded inputs
 CONVERTER_TOL = 1e-4   # converter dispatch, kernel path vs block-by-block plain, float32
+# K2: max|kernel - plain| / max|plain|. The kernel's side chain and gain take
+# other float32 forms (over*(1 - inv_ratio), exp(-0.115 e)) than the plain
+# version's (x_g - static_gain_curve, 10^(-e/20)), and the recurrence is
+# contractive (a convex combination per step), so errors do not grow with T.
+ENVELOPE_TOL = 1e-5
+NORMALIZER_TOL = 1e-4  # normalize_device, card vs CPU, over max|cpu|
+SWEEP_SHAPE = (1024, 2**18)        # one slab of the normalizer's candidate sweep
+FINAL_SHAPE = (8, T_SEG + 2**17)   # its final compression: 8 channels, fft-padded
+FEATURES = os.path.join(
+    ROOT, "music_mixing_style_transfer_tpu_torch", "weights",
+    "musdb18_fxfeatures_eqcompimagegain.npy",
+)
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -75,12 +100,13 @@ def full_float32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls after one warm-up,
-    from CUDA events."""
+def cuda_time_ms(fn, reps: int, warm_up: bool = True) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls, after one warm-up
+    call unless ``fn`` is warm already, from CUDA events."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -195,12 +221,17 @@ def phase_device_and_build():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    path, nvcc_out = build.build("tcn_block")
-    ptxas = [line.strip() for line in nvcc_out.splitlines() if "registers" in line or "spill" in line]
+    names = ("tcn_block", "envelope")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        built = dict(zip(names, pool.map(build.build, names)))
     emit(
         "device_and_build", t0, nvidia_smi=smi, device=torch.cuda.get_device_name(0),
-        torch=torch.__version__, cuda=torch.version.cuda, library=os.path.basename(path),
-        ptxas=ptxas,
+        torch=torch.__version__, cuda=torch.version.cuda,
+        libraries={n: os.path.basename(p) for n, (p, _) in built.items()},
+        ptxas={
+            n: [line.strip() for line in out.splitlines() if "registers" in line or "spill" in line]
+            for n, (_, out) in built.items()
+        },
     )
     return smi
 
@@ -224,15 +255,135 @@ def phase_kernel_vs_plain():
     return interp
 
 
+def envelope_bound(L: int, T: int) -> dict:
+    """Least time for one K2 launch: x read once and y written once (plus the
+    five per-lane vectors and env_out) over the HBM rate, against ~12 float32
+    operations a sample (side chain, two FMAs and a max, gain) over the
+    CUDA cores' peak; bytes bound it at every shape here."""
+    t_bytes = (2 * L * T + 6 * L) * 4 / HBM_RATE * 1e3
+    t_ops = 12 * L * T / F32_PEAK * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def envelope_lanes(L: int, T: int, seed: int):
+    """``x [L, T]`` and per-lane (threshold, ratio, a_att, a_rel, env0) on
+    the card, laid out like the normalizer's sweep: 8 channels of synthetic
+    music, each broadcast over its candidates, the candidates from the real
+    grids (the downward grid of ratio 4, its expander grid), with an
+    identity lane and a lane whose attack is slower than its release."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import NormalizationConfig
+    from music_mixing_style_transfer_tpu_torch.normalize.matching import _comp_grid
+
+    rng = np.random.default_rng(seed)
+    cfg = NormalizationConfig()
+    chans = synthetic_stems(rng, 4, T).reshape(8, T).astype(np.float32) / 32768.0
+    chans *= 10 ** (-10 / 20) / np.maximum(np.abs(chans).max(-1, keepdims=True), 1e-30)
+    x = chans[np.arange(L) * 8 // L]
+    Rd, Td = _comp_grid(4.0, cfg.comp_min_th, cfg.comp_max_ratio, expander=False)
+    Ru, Tu = _comp_grid(4.0, cfg.comp_min_th, cfg.comp_max_ratio, expander=True)
+    pick = np.arange(L)
+    ratio = np.where(pick % 4 == 3, 1.0 / Ru[pick % len(Ru)], Rd[pick % len(Rd)])
+    th = np.where(pick % 4 == 3, Tu[pick % len(Tu)], Td[pick % len(Td)])
+    settings = [cfg.comp_settings[s] for s in cfg.stems]
+    att = np.asarray([settings[(c * 8 // L) // 2 % 4][0] for c in pick])
+    rel = np.asarray([settings[(c * 8 // L) // 2 % 4][1] for c in pick])
+    ratio[L // 2] = 1.0                       # identity lane
+    att[-1], rel[-1] = 400.0, 20.0            # attack slower than release: the min branch
+    a_att = np.exp(-1.0 / (0.001 * SR * att))
+    a_rel = np.exp(-1.0 / (0.001 * SR * rel))
+    env0 = np.zeros(L)
+    dev = "cuda"
+    return [torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+            for v in (x, th, ratio, a_att, a_rel, env0)]
+
+
+def phase_envelope_vs_plain():
+    """K2 against its plain version, and its times. Returns the summary for
+    the kernels line."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
+        compressor_envelope,
+        envelope_reference,
+    )
+
+    cases = []
+
+    def check(name, L, T, cuts=None):
+        x, *p = envelope_lanes(L, T, SEED + L + T)
+        t_plain = time.perf_counter()
+        want, env_want = envelope_reference(x, *p)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t_plain
+        if cuts is None:
+            got, env = compressor_envelope(x, *p)
+        else:
+            parts, env = [], p[-1]
+            for a, b in zip([0] + cuts, cuts + [T]):
+                y, env = compressor_envelope(x[:, a:b].contiguous(), *p[:-1], env)
+                parts.append(y)
+            got = torch.cat(parts, -1)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        env_err = (env - env_want).abs().max().item()
+        env_scale = env_want.abs().max().item()
+        case = {
+            "case": name, "L": L, "T": T, "slabs": None if cuts is None else len(cuts) + 1,
+            "max_abs_err": err, "max_abs_ref": scale, "rel_err": err / max(scale, 1e-30),
+            "env_err": env_err, "env_ref": env_scale, "tol": ENVELOPE_TOL,
+            "plain_s": plain_s,
+            "lanes_expander": int((p[1] < 1).sum()), "lanes_identity": int((p[1] == 1).sum()),
+            "lanes_min_branch": int((p[2] > p[3]).sum()),
+        }
+        cases.append(case)
+        if not (err <= ENVELOPE_TOL * scale and env_err <= ENVELOPE_TOL * env_scale + 1e-6):
+            raise AssertionError(f"compressor_envelope disagrees with its plain version: {case}")
+
+    check("sweep_lanes", 1024, 2**16)
+    check("final_lanes", 8, 2**16)
+    check("ragged_L", 1000, 2**16)
+    check("one_lane", 1, 2**16)
+    check("one_sample", 1024, 1)
+    check("ragged_T", 1024, 1000)
+    check("carried_slabs", 1024, 2**16, cuts=[1000, 30001])  # three unequal, unaligned slabs
+    # the main path's launches: the sweep's three slabs of 2^18 with the
+    # carry (as CompressorStream feeds them), and the final compression
+    L, T = SWEEP_SHAPE
+    check("main_sweep_slabs", L, FINAL_SHAPE[1], cuts=[T, 2 * T])
+    check("main_final", *FINAL_SHAPE)
+
+    times = {}
+    for name, (L, T) in (("sweep", SWEEP_SHAPE), ("final", FINAL_SHAPE)):
+        lanes = envelope_lanes(L, T, SEED + 1)
+        ms = cuda_time_ms(lambda: compressor_envelope(*lanes), 5)
+        times[name] = {"shape": [L, T], "ms": ms, "ns_per_step": ms * 1e6 / T, **envelope_bound(L, T)}
+        if name == "sweep":  # the plain version at the same shape, warm from the checks
+            plain_ms = cuda_time_ms(lambda: envelope_reference(*lanes), 1, warm_up=False)
+        del lanes
+    emit("envelope_vs_plain", t0, cases=cases, times=times,
+         plain_ms={"shape": list(SWEEP_SHAPE), "ms": plain_ms})
+    return {
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "plain_ms": plain_ms, "times": times,
+    }
+
+
 def phase_main_path():
     t0 = time.perf_counter()
     import torch
+    import torch.nn.functional as F
 
     from music_mixing_style_transfer_tpu_torch.config import InferenceConfig
     from music_mixing_style_transfer_tpu_torch.infer.pipeline import (
         MixingStyleTransfer,
         StyleTransferEngine,
     )
+    from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
     from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
 
     rng = np.random.default_rng(SEED)
@@ -240,12 +391,14 @@ def phase_main_path():
     song = synthetic_stems(rng, S, T_SEG)
     ref = synthetic_stems(rng, S, 3 * T_SEG)
     ref_b = synthetic_stems(rng, S, T_SEG)
-    cfg = InferenceConfig(normalize_input=False)
-    runs, launches, outputs, engines, checks = [], 0, {}, {}, []
-    for name, dtype, ref_b_in in (
-        ("float32", "float32", None),
-        ("bfloat16", "bfloat16", None),
-        ("interpolation_float32", "float32", ref_b),
+    norm = AudioEffectsNormalizer(FEATURES)  # default NormalizationConfig, on the card
+    runs, launches, env_launches, outputs, engines, checks = [], 0, 0, {}, {}, []
+    for name, dtype, ref_b_in, normalizer in (
+        ("float32", "float32", None, None),
+        ("bfloat16", "bfloat16", None, None),
+        ("interpolation_float32", "float32", ref_b, None),
+        ("normalized_float32", "float32", None, norm),
+        ("normalized_interpolation_float32", "float32", ref_b, norm),
     ):
         t_init = time.perf_counter()
         eng = engines.get(dtype) or StyleTransferEngine(dtype=dtype, seed=SEED)
@@ -258,30 +411,50 @@ def phase_main_path():
             seen.append((bool(torch.isfinite(out).all()), torch.backends.cudnn.allow_tf32, io))
 
         handle = eng.converter.register_forward_hook(hook)
-        pipe = MixingStyleTransfer(eng, cfg)
+        cfg = InferenceConfig(normalize_input=normalizer is not None)
+        pipe = MixingStyleTransfer(eng, cfg, normalizer=normalizer)
         pipe.transfer_song_pcm(song[:, :, :8192], ref[:, :, :8192])  # warm-up, not counted
         seen.clear()
         torch.cuda.synchronize()
         tcn_block.launches = 0
+        compressor_envelope.launches = 0
         t_run = time.perf_counter()
         mix, _ = pipe.transfer_song_pcm(song, ref, reference_pcm_b=ref_b_in)
         run_s = time.perf_counter() - t_run
-        n = tcn_block.launches
+        n, n_env = tcn_block.launches, compressor_envelope.launches
         handle.remove()
         launches += n
+        env_launches += n_env
         finite = [f for f, _, _ in seen]
         ok = (
             mix.dtype == np.int16 and mix.shape == (2, T_SEG) and finite == [True]
             and np.abs(mix).max() > 0 and n == 11 and not any(tf32 for _, tf32, _ in seen)
+            and (n_env >= 4 if normalizer is not None else n_env == 0)
         )
-        runs.append({
+        run = {
             "run": name, "engine_init_s": init_s, "transfer_song_pcm_s": run_s,
             "audio_s": T_SEG / SR, "converter_dispatches": len(seen),
-            "tcn_block_launches": n, "mix_shape": list(mix.shape),
+            "tcn_block_launches": n, "compressor_envelope_launches": n_env,
+            "mix_shape": list(mix.shape),
             "mix_peak": int(np.abs(mix.astype(np.int32)).max()), "finite": finite,
             "process_cudnn_tf32": torch.backends.cudnn.allow_tf32,
             "engine_cudnn_tf32": [tf32 for _, tf32, _ in seen],
-        })
+        }
+        if normalizer is not None:
+            # normalize_device alone on the run's own input (warm by now)
+            fft = normalizer.cfg.fft_size
+            with torch.inference_mode():
+                x = torch.from_numpy(song).cuda().float() * (1.0 / 32768.0)
+                x = F.pad(x, (fft, fft))
+                torch.cuda.synchronize()
+                t_norm = time.perf_counter()
+                normalizer.batched().normalize_device(x, list(cfg.instruments), [T_SEG] * S)
+                torch.cuda.synchronize()
+                run["normalize_device_s"] = time.perf_counter() - t_norm
+                del x
+            choice = normalizer.batched().last_compression
+            run["compression"] = {k: np.asarray(v).tolist() for k, v in choice.items()}
+        runs.append(run)
         if not ok:
             raise AssertionError(f"main path run failed its checks: {runs[-1]}")
         outputs[name] = mix
@@ -304,12 +477,55 @@ def phase_main_path():
     bf = outputs["bfloat16"].astype(np.float64)
     fp = outputs["float32"].astype(np.float64)
     nrmse = float(np.sqrt(np.mean((bf - fp) ** 2) / max(np.mean(fp**2), 1e-12)))
-    emit("main_path", t0, runs=runs, launches=launches, converter_checks=checks,
-         bf16_vs_f32_mix_nrmse=nrmse)
+    emit("main_path", t0, runs=runs, launches=launches, envelope_launches=env_launches,
+         converter_checks=checks, bf16_vs_f32_mix_nrmse=nrmse)
     bad = [c for c in checks if not c["max_abs_err"] <= CONVERTER_TOL * max(c["max_abs_ref"], 1e-6)]
-    if len(checks) != 2 or bad:
+    if len(checks) != 4 or bad:
         raise AssertionError(f"converter disagrees with the block-by-block plain run: {checks}")
-    return launches
+    return launches, env_launches
+
+
+def phase_normalizer_card_vs_cpu():
+    """``normalize_device`` on one input on the card and on the CPU: the
+    compression choices must be identical, the stems within NORMALIZER_TOL.
+    The song is the main path's 2^19 samples (11.9 s), padded by the default
+    fft_size on both sides, so the card runs every K2 launch of the main
+    path on it; the CPU side walks the envelope in a Python loop."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.normalize.batch import (
+        BatchedAudioEffectsNormalizer,
+    )
+
+    T = T_SEG
+    card = AudioEffectsNormalizer(FEATURES)
+    cpu = BatchedAudioEffectsNormalizer(card.features, card.cfg, device="cpu")
+    fft = card.cfg.fft_size
+    insts = list(card.cfg.stems)
+    song = synthetic_stems(np.random.default_rng(SEED + 3), len(insts), T) / 32768.0
+    x = torch.from_numpy(np.pad(song.astype(np.float32), ((0, 0), (0, 0), (fft, fft))))
+    with torch.inference_mode():
+        t_card = time.perf_counter()
+        got = card.batched().normalize_device(x.cuda(), insts, [T] * len(insts)).cpu()
+        card_s = time.perf_counter() - t_card
+        t_cpu = time.perf_counter()
+        want = cpu.normalize_device(x, insts, [T] * len(insts))
+        cpu_s = time.perf_counter() - t_cpu
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    a, b = card.batched().last_compression, cpu.last_compression
+    same = all(np.array_equal(a[k], b[k]) for k in ("ratio", "threshold", "active", "fallback"))
+    emit(
+        "normalizer_card_vs_cpu", t0, song_samples=T, shape=list(x.shape), card_s=card_s,
+        cpu_s=cpu_s, cpu_threads=torch.get_num_threads(), max_abs_err=err, max_abs_ref=scale,
+        tol=NORMALIZER_TOL, same_choices=same,
+        card_choice={k: np.asarray(v).tolist() for k, v in a.items()},
+        cpu_choice={k: np.asarray(v).tolist() for k, v in b.items()},
+    )
+    if not (same and err <= NORMALIZER_TOL * scale and torch.isfinite(got).all()):
+        raise AssertionError("normalize_device on the card disagrees with the CPU")
 
 
 def phase_cli():
@@ -324,18 +540,27 @@ def phase_cli():
             stems = synthetic_stems(rng, len(insts), T)
             for inst, x in zip(insts, stems):
                 write_wav(os.path.join(tmp, "song0", "separated", name, inst + ".wav"), x.T, SR)
-        cmd = [
-            sys.executable, "-m", "music_mixing_style_transfer_tpu_torch.infer.style_transfer",
-            "--target_dir", tmp + "/", "--do_not_separate", "true", "--normalize_input", "false",
-        ]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        out = os.path.join(tmp, "song0", "mixture_output_notnormed.wav")
-        y = read_wav_stereo_ct(out) if os.path.exists(out) else None
-        ok = proc.returncode == 0 and y is not None and y.shape == (2, T) and np.isfinite(y).all()
-        emit("cli", t0, returncode=proc.returncode, wrote=y is not None,
-             shape=None if y is None else list(y.shape))
-        if not ok:
-            raise AssertionError(f"CLI failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        results = []
+        # the CLI's defaults normalize (--normalize_input true, the port's
+        # feature file); then the same song without normalization
+        for extra, wav in (([], "mixture_output.wav"),
+                           (["--normalize_input", "false"], "mixture_output_notnormed.wav")):
+            cmd = [
+                sys.executable, "-m", "music_mixing_style_transfer_tpu_torch.infer.style_transfer",
+                "--target_dir", tmp + "/", "--do_not_separate", "true", *extra,
+            ]
+            t_cli = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            out = os.path.join(tmp, "song0", wav)
+            y = read_wav_stereo_ct(out) if os.path.exists(out) else None
+            ok = proc.returncode == 0 and y is not None and y.shape == (2, T) and np.isfinite(y).all()
+            results.append({"args": extra, "wav": wav, "returncode": proc.returncode,
+                            "wrote": y is not None, "shape": None if y is None else list(y.shape),
+                            "seconds": time.perf_counter() - t_cli})
+            if not ok:
+                emit("cli", t0, runs=results)
+                raise AssertionError(f"CLI failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        emit("cli", t0, runs=results)
 
 
 def summary(cases) -> dict:
@@ -350,7 +575,7 @@ def summary(cases) -> dict:
     }
 
 
-def phase_kernels_line(launches: int, interp_cases, t_all: float):
+def phase_kernels_line(launches: int, interp_cases, env_launches: int, env, t_all: float):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -389,8 +614,26 @@ def phase_kernels_line(launches: int, interp_cases, t_all: float):
         "bfloat16": main[torch.bfloat16],
         "interpolation": {"shape": [INTERP_B, INTERP_T, 128], **interp},
     }
+    sweep, final = env["times"]["sweep"], env["times"]["final"]
+    envelope = {
+        "name": "compressor_envelope",
+        "route": "cuda",
+        "source": "music_mixing_style_transfer_tpu_torch/csrc/envelope.cu",
+        "replaces": "music_mixing_style_transfer_tpu/ops/pallas/envelope.py:105",
+        "launches": env_launches,
+        "max_abs_err": env["max_abs_err"],
+        "ms": sweep["ms"],
+        "plain_ms": env["plain_ms"],
+        "bound_ms": sweep["bound_ms"],
+        "bound_by": sweep["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes this recurrence",
+        "shape": sweep["shape"],
+        "dtype": "float32",
+        "final": final,
+    }
     emit("kernels_line", t0, total_s=round(time.perf_counter() - t_all, 3))
-    return {"kernels": [entry]}
+    return {"kernels": [entry, envelope]}
 
 
 def main() -> int:
@@ -407,10 +650,12 @@ def main() -> int:
     smi = phase_device_and_build()
     with full_float32():
         interp_cases = phase_kernel_vs_plain()
-    launches = phase_main_path()  # PyTorch's default flags, as the CLI runs
+    env = phase_envelope_vs_plain()
+    launches, env_launches = phase_main_path()  # PyTorch's default flags, as the CLI runs
+    phase_normalizer_card_vs_cpu()
     phase_cli()
     with full_float32():
-        kernels = phase_kernels_line(launches, interp_cases, t_all)
+        kernels = phase_kernels_line(launches, interp_cases, env_launches, env, t_all)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

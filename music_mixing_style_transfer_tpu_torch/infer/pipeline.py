@@ -6,7 +6,8 @@ Counterpart of ``music_mixing_style_transfer_tpu/infer/pipeline.py``
 - whole songs are cut into ``[n_segments, 2, L]`` and run as ONE batched
   forward; the segment axis is padded to a small set of bucket sizes;
 - reference embeddings are masked means over real segments, on the device;
-- ``transfer_song_pcm`` uploads int16 stem stacks once, converts every
+- ``transfer_song_pcm`` uploads int16 stem stacks once, FX-normalizes them
+  on the device (with a normalizer and ``normalize_input``), converts every
   stem's segments in one converter dispatch, and sums and quantizes on the
   device.
 
@@ -19,8 +20,8 @@ cuDNN convolutions and matmuls (``_engine_forward``), so ``float32`` means
 full float32 whatever PyTorch's process-wide flags say, and they are
 restored afterwards.
 
-Not ported: FX normalization (``normalize_input=True`` with a normalizer
-raises), the device mesh and ``sequence_parallel`` (one card).
+FX normalization always runs in float32, also under a bf16 engine. Not
+ported: the device mesh and ``sequence_parallel`` (one card).
 """
 from __future__ import annotations
 
@@ -39,27 +40,10 @@ from ..data.wavio import read_wav_stereo_ct, read_wav_stereo_ct_i16, write_wav
 from ..models import FXencoder, MixFXcloner
 from ..models.checkpoints import load_model_state
 from ..models.fast_init import fast_init
+from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
-
-NORMALIZATION_NOT_PORTED = (
-    "FX normalization is not yet ported to the PyTorch package (ROADMAP: next "
-    "slice, K2 + normalization); run with normalize_input=False "
-    "(CLI: --normalize_input false)"
-)
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent, so an entry point never carries on quietly on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' (CLI: --inference_device cpu) to run on the CPU"
-        )
-    return dev
 
 
 def _bucket(n: int, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -243,8 +227,6 @@ class MixingStyleTransfer:
     ):
         self.engine = engine
         self.cfg = inference_cfg or InferenceConfig()
-        if normalizer is not None and self.cfg.normalize_input:
-            raise NotImplementedError(NORMALIZATION_NOT_PORTED)
         self.normalizer = normalizer
 
     # ------------------------------------------------------------------
@@ -254,9 +236,17 @@ class MixingStyleTransfer:
         reference_stems: Dict[str, np.ndarray],
         reference_stems_b: Optional[Dict[str, np.ndarray]] = None,
     ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-        """Host path: convert float stems toward the reference's style.
+        """Host path: FX-normalize the float stems (with a normalizer and
+        ``normalize_input``), then convert them toward the reference's style.
         Returns ``(mixture [2, T], per-stem outputs)``."""
         cfg = self.cfg
+        if self.normalizer is not None and cfg.normalize_input:
+            t0 = time.perf_counter()
+            normalized = self.normalizer.normalize_stems(
+                {i: input_stems[i] for i in cfg.instruments}
+            )
+            input_stems = {i: np.clip(v, -1.0, 1.0) for i, v in normalized.items()}
+            log.info("fx-normalization: %.1fs", time.perf_counter() - t0)
         if reference_stems_b is None:
             t0 = time.perf_counter()
             out = self._transfer_batched(input_stems, reference_stems)
@@ -385,6 +375,9 @@ class MixingStyleTransfer:
         ``style_transfer.py:181-270``): ``cfg.interpolate_segments`` chunks,
         chunk ``i`` conditioned on ``w*embA + (1-w)*embB``.
 
+        With a normalizer and ``cfg.normalize_input``, the stems are
+        FX-normalized on the device first, in both modes.
+
         Returns ``(mixture_pcm [2, T] int16, stems dict | None)``, as numpy
         arrays, or as device tensors when ``sync=False``.
         """
@@ -407,7 +400,17 @@ class MixingStyleTransfer:
             return x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
         Tb = -(-max(T, 1) // L) * L  # song-length bucket = whole segments
-        y_in = F.pad(upload(input_pcm), (0, Tb - T))
+        if self.normalizer is not None and cfg.normalize_input:
+            # FX normalization on the device, in float32 whatever the engine's
+            # dtype; the samples past T are zeroed like the host path's padding
+            # (the normalizer may smear ~ntaps/2 samples of FIR tail past T)
+            fft = self.normalizer.cfg.fft_size
+            x = F.pad(upload(input_pcm), (fft, fft + Tb - T))
+            x = self.normalizer.batched().normalize_device(x, insts, [T] * S)
+            y_in = x[:, :, fft : fft + Tb].clamp(-1.0, 1.0)
+            y_in = y_in * (torch.arange(Tb, device=dev) < T)
+        else:
+            y_in = F.pad(upload(input_pcm), (0, Tb - T))
         ref_dev = torch.from_numpy(np.ascontiguousarray(reference_pcm)).to(dev)
         embs = self._embed_group_pcm(ref_dev, reference_pcm.shape[-1])  # [S, D]
 

@@ -3,14 +3,14 @@
 reference ``inference/style_transfer.py:344-397``):
 
     python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer \
-        --target_dir samples/style_transfer/ --do_not_separate true \
-        --normalize_input false
+        --target_dir samples/style_transfer/ --do_not_separate true
 
 Runs on the card (``--inference_device cuda``, the default) unless
-``--inference_device cpu`` is given. FX normalization is not yet ported:
-``--normalize_input`` keeps its default of ``true``, and ``true`` stops with
-an error; pass ``false``. Expects pre-separated stems (or the ``demucs`` CLI
-on PATH when ``--do_not_separate false``).
+``--inference_device cpu`` is given. ``--normalize_input true`` (the
+default) FX-normalizes the input stems toward the MUSDB18 features of
+``--precomputed_normalization_feature`` (by default the port's own copy in
+``weights/``) before the transfer. Expects pre-separated stems (or the
+``demucs`` CLI on PATH when ``--do_not_separate false``).
 """
 from __future__ import annotations
 
@@ -19,13 +19,9 @@ import glob
 import os
 import sys
 
-from ..config import InferenceConfig
-from ..infer.pipeline import (
-    NORMALIZATION_NOT_PORTED,
-    MixingStyleTransfer,
-    StyleTransferEngine,
-    separate_with_demucs,
-)
+from ..config import InferenceConfig, NormalizationConfig
+from ..infer.pipeline import MixingStyleTransfer, StyleTransferEngine, separate_with_demucs
+from ..normalize import AudioEffectsNormalizer
 from ..utils.logging import get_logger
 
 log = get_logger("style_transfer")
@@ -68,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--do_not_separate", type=str2bool, default=False)
     i.add_argument("--separation_model", type=str, default="mdx_extra")
     i.add_argument("--normalize_input", type=str2bool, default=True,
-                   help="FX normalization is not yet ported: pass false")
+                   help="FX-normalize the input stems before the transfer")
     i.add_argument(
         "--normalization_order", type=str, nargs="+",
         default=["loudness", "eq", "compression", "imager", "loudness"],
@@ -131,8 +127,6 @@ def config_from_args(args) -> InferenceConfig:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.normalize_input:
-        parser.error(NORMALIZATION_NOT_PORTED)
     cfg = config_from_args(args)
     engine = StyleTransferEngine(
         ckpt_path_enc=args.ckpt_path_enc,
@@ -164,7 +158,17 @@ def main(argv=None) -> int:
                     device=args.separation_device,
                 )
 
-    pipeline = MixingStyleTransfer(engine, cfg)
+    normalizer = None
+    if args.normalize_input:
+        normalizer = AudioEffectsNormalizer(
+            args.precomputed_normalization_feature,
+            NormalizationConfig(
+                effects=tuple(args.normalization_order), stems=tuple(args.instruments)
+            ),
+            device=args.inference_device,
+        )
+
+    pipeline = MixingStyleTransfer(engine, cfg, normalizer=normalizer)
     written = pipeline.run_directory(args.target_dir, args.output_dir)
     log.info("wrote %d mixtures", len(written))
     return 0

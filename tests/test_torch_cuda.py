@@ -1,4 +1,4 @@
-"""PyTorch port on the card: the CUDA kernel against its plain version.
+"""PyTorch port on the card: the CUDA kernels against their plain versions.
 
 Marked ``cuda``; skips where ``torch.cuda.is_available()`` is false. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
+    compressor_envelope,
+    envelope_reference,
+)
 from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import (
     tcn_block,
     tcn_block_reference,
@@ -77,3 +81,50 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         tcn_block(**{**a, "x": a["x"].half()}, d=8)
     with pytest.raises(ValueError, match="must be"):
         tcn_block(**{**a, "r": a["r"].cpu()}, d=8)
+
+
+def _lanes(seed, L, T, dev):
+    """Audio and per-lane compressor parameters: compressors, an expander,
+    an identity lane and lanes whose attack is slower than the release."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((L, T)) * 0.3 * rng.uniform(0.01, 1.5, (L, 1))
+    ratio = rng.choice([4.0, 6.0, 20.0, 0.25, 1.0], L)
+    a = np.exp(-1.0 / (44.1 * rng.uniform(1.0, 700.0, (2, L))))
+    params = [rng.uniform(-40.0, -10.0, L), ratio, a[0], a[1], rng.uniform(0.0, 20.0, L)]
+    return [torch.from_numpy(v.astype(np.float32)).to(dev) for v in [x] + params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "L,T,cuts",
+    [(1024, 4096, None), (1000, 1000, None), (1, 1, None), (8, 1000, None), (7, 5000, [1, 1777, 4096])],
+)
+def test_envelope_kernel_matches_plain_version(card, L, T, cuts):
+    """Ragged L and T, and slabs of unequal lengths with the envelope carried:
+    1e-5 of max|plain| (log10/exp forms differ; the recurrence contracts)."""
+    x, *p = _lanes(L * 7 + T, L, T, card)
+    want, env_want = envelope_reference(x, *p)
+    before = compressor_envelope.launches
+    if cuts is None:
+        got, env = compressor_envelope(x, *p)
+    else:
+        parts, env = [], p[-1]
+        for a, b in zip([0] + cuts, cuts + [T]):
+            y, env = compressor_envelope(x[:, a:b].contiguous(), *p[:-1], env)
+            parts.append(y)
+        got = torch.cat(parts, -1)
+    torch.cuda.synchronize()
+    assert compressor_envelope.launches == before + (1 if cuts is None else len(cuts) + 1)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert (env - env_want).abs().max().item() <= 1e-5 * env_want.abs().max().item() + 1e-6
+
+
+@pytest.mark.cuda
+def test_envelope_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    x, *p = _lanes(0, 4, 64, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        compressor_envelope(x.t().contiguous().t(), *p)
+    with pytest.raises(ValueError, match="float32"):
+        compressor_envelope(x.double(), *p)
+    with pytest.raises(ValueError, match="must be"):
+        compressor_envelope(x, *p[:-1], p[-1].cpu())

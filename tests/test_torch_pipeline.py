@@ -19,6 +19,7 @@ import torch
 from music_mixing_style_transfer_tpu.config import (
     FXencoderConfig as JaxEncCfg,
     InferenceConfig as JaxInfCfg,
+    NormalizationConfig as JaxNormCfg,
     TCNConfig as JaxTCNCfg,
 )
 from music_mixing_style_transfer_tpu.infer.pipeline import (
@@ -27,6 +28,9 @@ from music_mixing_style_transfer_tpu.infer.pipeline import (
 )
 from music_mixing_style_transfer_tpu.models import FXencoder as JaxFXencoder
 from music_mixing_style_transfer_tpu.models import MixFXcloner as JaxMixFXcloner
+from music_mixing_style_transfer_tpu.normalize.normalizer import (
+    AudioEffectsNormalizer as JaxNormalizer,
+)
 from music_mixing_style_transfer_tpu.models.torch_import import (
     fxencoder_from_torch,
     load_torch_state_dict as jax_load_torch_state_dict,
@@ -35,6 +39,7 @@ from music_mixing_style_transfer_tpu.models.torch_import import (
 from music_mixing_style_transfer_tpu_torch.config import (
     FXencoderConfig,
     InferenceConfig,
+    NormalizationConfig,
     TCNConfig,
 )
 from music_mixing_style_transfer_tpu_torch.data.wavio import read_wav_stereo_ct, write_wav
@@ -51,6 +56,7 @@ from music_mixing_style_transfer_tpu_torch.models.weights import (
     fxencoder_from_jax,
     mixfxcloner_from_jax,
 )
+from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
 
 torch.set_num_threads(2)
 
@@ -71,6 +77,33 @@ def engines():
     eng.converter.load_state_dict(mixfxcloner_from_jax(jax_eng.conv_vars))
     assert [n for n, b in enumerate(eng.converter.blocks) if b.uses_kernel()] == [3]
     return jax_eng, eng
+
+
+# FX normalization at a small size: fft_size 32768 pads every stem past the
+# 65,536 samples of the spectral K-weighting; a small candidate grid keeps
+# the compression sweep short
+NORM = dict(fft_size=32768, hop_length=8192, ntaps=101, comp_min_th=-20.0, comp_max_ratio=5,
+            stems=INSTS)
+
+
+@pytest.fixture(scope="module")
+def normalizers(tmp_path_factory):
+    """The JAX and the port normalizer on one synthetic feature file."""
+    rng = np.random.default_rng(21)
+    bins = NORM["fft_size"] // 2 + 1
+    feats = {
+        "eq": {i: np.abs(rng.standard_normal(bins)) * 0.05 + np.geomspace(1.0, 0.01, bins)
+               for i in INSTS},
+        "compression": {i: np.asarray([-16.0, 1.0]) for i in INSTS},
+        "imager": {i: rng.uniform(0.05, 0.3) for i in INSTS},
+        "loudness": {i: np.asarray([-22.0]) for i in INSTS},
+    }
+    path = str(tmp_path_factory.mktemp("feat") / "features.npy")
+    np.save(path, feats, allow_pickle=True)
+    return (
+        JaxNormalizer(path, JaxNormCfg(**NORM)),
+        AudioEffectsNormalizer(path, NormalizationConfig(**NORM), device="cpu"),
+    )
 
 
 def _pcm(rng, S, T, scale=0.3):
@@ -106,6 +139,40 @@ def test_transfer_song_pcm_matches_jax(engines, rng, T, Tr, interp):
     assert np.abs(got).max() > 0
     for inst in INSTS:
         assert np.abs(got_stems[inst].astype(np.int32) - want_stems[inst]).max() <= 1
+
+
+@pytest.mark.parametrize("interp", [False, True])
+def test_normalized_transfer_song_pcm_matches_jax(engines, normalizers, rng, interp):
+    """FX normalization on the device path, before the plain and the
+    interpolation dispatch: int16 mixtures within 1 LSB."""
+    jax_eng, eng = engines
+    jnorm, norm = normalizers
+    jcfg, cfg = _cfgs(interpolate_segments=3)
+    x, ref = _pcm(rng, 2, 3000, 0.2), _pcm(rng, 2, 3000)
+    ref_b = _pcm(rng, 2, 2500) if interp else None
+    want, _ = JaxMST(jax_eng, jcfg, normalizer=jnorm).transfer_song_pcm(
+        x, ref, reference_pcm_b=ref_b
+    )
+    got, _ = MixingStyleTransfer(eng, cfg, normalizer=norm).transfer_song_pcm(
+        x, ref, reference_pcm_b=ref_b
+    )
+    plain, _ = MixingStyleTransfer(eng, cfg).transfer_song_pcm(x, ref, reference_pcm_b=ref_b)
+    assert got.dtype == np.int16 and got.shape == (2, 3000)
+    assert np.abs(got.astype(np.int32) - want).max() <= 1
+    assert np.abs(got.astype(np.int32) - plain).max() > 100  # normalization ran
+    assert norm.batched().last_compression is not None
+
+
+def test_normalized_transfer_stems_matches_jax(engines, normalizers, rng):
+    jax_eng, eng = engines
+    jnorm, norm = normalizers
+    jcfg, cfg = _cfgs()
+    x = {i: (rng.standard_normal((2, 2500)) * 0.2).astype(np.float32) for i in INSTS}
+    ref = {i: (rng.standard_normal((2, 3000)) * 0.2).astype(np.float32) for i in INSTS}
+    want, _ = JaxMST(jax_eng, jcfg, normalizer=jnorm).transfer_stems(x, ref)
+    got, _ = MixingStyleTransfer(eng, cfg, normalizer=norm).transfer_stems(x, ref)
+    assert got.shape == (2, 2500)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_engine_runs_full_float32_whatever_the_process_flags(engines, rng):
@@ -228,12 +295,27 @@ def jax_flatten(tree, prefix=""):
     return out
 
 
-def test_normalization_is_refused_not_skipped(engines):
+def test_normalization_is_refused_not_skipped(engines, rng):
+    """FX normalization, once refused, now runs: a normalizer with
+    ``normalize_input`` is called on both paths and never skipped; with
+    normalization off it is accepted and unused, as in JAX."""
     _, eng = engines
-    with pytest.raises(NotImplementedError, match="FX normalization is not yet ported"):
-        MixingStyleTransfer(eng, InferenceConfig(normalize_input=True), normalizer=object())
-    # a normalizer with normalization off is accepted and unused, as in JAX
-    MixingStyleTransfer(eng, InferenceConfig(normalize_input=False), normalizer=object())
+
+    class Spy:
+        def __init__(self):
+            self.calls = []
+
+        def normalize_stems(self, stems):
+            self.calls.append(sorted(stems))
+            return {i: v * 0.5 for i, v in stems.items()}
+
+    spy = Spy()
+    _, cfg = _cfgs()
+    x = {i: (rng.standard_normal((2, 2500)) * 0.2).astype(np.float32) for i in INSTS}
+    MixingStyleTransfer(eng, cfg, normalizer=spy).transfer_stems(x, x)
+    assert spy.calls == [sorted(INSTS)]
+    _, off = _cfgs(normalize_input=False)
+    MixingStyleTransfer(eng, off, normalizer=object()).transfer_stems(x, x)
 
 
 def _write_song(root, rng, T, names=("input", "reference")):
@@ -244,6 +326,9 @@ def _write_song(root, rng, T, names=("input", "reference")):
 
 
 def test_cli_writes_mixture_on_cpu(tmp_path, rng):
+    """With its defaults, the CLI FX-normalizes (--normalize_input true, the
+    port's own feature file, the default NormalizationConfig) and writes
+    mixture_output.wav; with --normalize_input false, the _notnormed one."""
     from music_mixing_style_transfer_tpu_torch.infer.style_transfer import main
 
     _write_song(tmp_path / "song0", rng, 1500)
@@ -252,11 +337,12 @@ def test_cli_writes_mixture_on_cpu(tmp_path, rng):
         "--segment_length", "2048", "--segment_length_ref", "2048",
         "--instruments", *INSTS, "--inference_device", "cpu",
     ]
-    with pytest.raises(SystemExit):  # --normalize_input defaults to true
-        main(argv)
+    assert main(argv) == 0
     assert main(argv + ["--normalize_input", "false"]) == 0
+    normed = read_wav_stereo_ct(str(tmp_path / "song0" / "mixture_output.wav"))
     y = read_wav_stereo_ct(str(tmp_path / "song0" / "mixture_output_notnormed.wav"))
-    assert y.shape == (2, 1500) and np.isfinite(y).all() and np.abs(y).max() > 0
+    for a in (normed, y):
+        assert a.shape == (2, 1500) and np.isfinite(a).all() and np.abs(a).max() > 0
 
 
 def test_run_directory_interpolation_and_stems(engines, tmp_path, rng):
