@@ -8,11 +8,16 @@ non-zero:
 
 1. device + build: the card's name and power limit (``nvidia-smi``), and
    the hand-written CUDA kernels built from ``csrc/``, one nvcc per source,
-   all started together.
+   all started together; it fails if ``-Xptxas -v`` reports a register
+   spill in any of them.
 2. K1 vs plain: the fused TCN-block kernel against its plain PyTorch version
    on the card, TF32 off, with kernel, plain and library (``F.conv1d``)
    times, at the main path's shapes (every dilation at the interpolation
-   dispatch's [128, 17477, 128]) and at edge cases.
+   dispatch's [128, 17477, 128]) and at edge cases; and its float32 path
+   (3xTF32) against a float64 run of the plain version at [2, 16384, 128].
+   Each timed case also gives, under ``derived``, figures computed rather
+   than measured: the bound on the CUDA cores' float32 rate and the L2 ->
+   shared-memory bytes of the kernel's tiling over its time.
 3. K2 vs plain: the compressor-envelope kernel against its plain version at
    [1024, 65536] and [8, 65536] with per-lane parameters from the
    normalizer's candidate grids, ragged L and T, slabs carried, and the main
@@ -46,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,9 +69,11 @@ INTERP_B = 128         # interpolation dispatch: bucket(4 stems x 30 chunks)
 INTERP_T = T_SEG // 30 + 1  # its chunk length, 17477 samples
 DILATIONS = [2**n for n in range(3, 14)]  # the fused blocks 3-13
 F32_PEAK = 67e12       # H100 SXM float32 (non-tensor-core), NVIDIA data sheet
+TF32_PEAK = 495e12     # H100 SXM TF32 dense tensor core: K1's float32 runs 3 TF32 passes
 BF16_PEAK = 989e12     # H100 SXM bf16 dense tensor core
 HBM_RATE = 3.35e12     # H100 SXM HBM3 bytes/s
 F32_TOL = 1e-4         # max|kernel - plain| / max|plain|, float32
+F64_TOL = 1e-5         # K1 float32 (3xTF32) vs float64, over max|float64|
 BF16_TOL = 2e-2        # same, bf16 kernel vs float32 plain on bf16-rounded inputs
 CONVERTER_TOL = 1e-4   # converter dispatch, kernel path vs block-by-block plain, float32
 # K2: max|kernel - plain| / max|plain|. The kernel's side chain and gain take
@@ -118,21 +126,43 @@ def cuda_time_ms(fn, reps: int, warm_up: bool = True) -> float:
 
 def block_bound(B: int, T: int, d: int, dtype) -> dict:
     """Least time for one fused block: operations of the taps that land in
-    [0, T) (2 per multiply-add) plus the epilogue, over the dtype's peak;
-    bytes of x and y once and w once, over the HBM rate."""
+    [0, T) (2 per multiply-add) plus the epilogue, over the peak of the
+    route the kernel takes (bf16 tensor cores; float32 as 3 TF32 passes);
+    bytes of x and y once and w once, over the HBM rate. For float32,
+    ``derived`` holds the bound on the CUDA cores' float32 rate beside it."""
     import torch
 
     C, K = 128, 15
     valid_rows = sum(max(0, T - abs(k - 7) * d) for k in range(K))
     ops = B * (2 * valid_rows * C * C + 7 * T * C)
-    esize = 4 if dtype == torch.float32 else 2
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 2
     nbytes = 2 * B * T * C * esize + K * C * C * esize + (3 * C + 2 * B * C) * 4
-    t_ops = ops / (F32_PEAK if dtype == torch.float32 else BF16_PEAK) * 1e3
+    t_ops = (3 * ops / TF32_PEAK if f32 else ops / BF16_PEAK) * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
-    return {
+    out = {
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
+    if f32:
+        out["derived"] = {"bound_fp32_cuda_cores_ms": max(ops / F32_PEAK * 1e3, t_bytes)}
+    return out
+
+
+def l2_to_sm_bytes(B: int, T: int, d: int, dtype) -> int:
+    """Bytes K1's TMA loads bring from L2 into shared memory in one launch:
+    for each tile and each live tap, the x box and the w box(es) of every
+    channel chunk (w_big and w_small in float32). Derived from the tiling
+    that the built kernel reports (``tcn_block_tiling``), not measured."""
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tiling
+
+    C, K = 128, 15
+    bm, parts = tiling(dtype)
+    esize = dtype.itemsize
+    t0 = np.arange(0, T, bm, dtype=np.int64)[:, None]
+    shift = (np.arange(K, dtype=np.int64)[None, :] - 7) * d
+    live = int(((t0 + shift + bm > 0) & (t0 + shift < T)).sum())
+    return B * live * (bm * C + parts * C * C) * esize
 
 
 def block_case(B: int, T: int, d: int, dtype, gen, time_it: bool, reps: int = 3) -> dict:
@@ -178,8 +208,53 @@ def block_case(B: int, T: int, d: int, dtype, gen, time_it: bool, reps: int = 3)
         out["library_ms"] = cuda_time_ms(
             lambda: F.conv1d(x_ncl, w_oik, padding=7 * d, dilation=d), max(1, reps - 1)
         )
+        l2_gb = l2_to_sm_bytes(B, T, d, dtype) / 1e9
+        out.setdefault("derived", {}).update(
+            l2_to_sm_gb=l2_gb, l2_to_sm_tb_s=l2_gb / out["kernel_ms"]
+        )
     if not err <= tol * scale:
         raise AssertionError(f"tcn_block disagrees with its plain version: {out}")
+    return out
+
+
+def float64_case(B: int, T: int, d: int, gen) -> dict:
+    """K1's float32 path (3xTF32) and the float32 plain version (cuDNN, TF32
+    off), each against the plain version run in float64 on the same inputs:
+    max abs error over max|float64|."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import (
+        block_epilogue,
+        dilated_conv,
+        tcn_block,
+        tcn_block_reference,
+    )
+
+    C = 128
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale + shift
+
+    a = dict(
+        x=rnd(B, T, C, scale=0.3), w=rnd(15, C, C, scale=0.05),
+        s=rnd(C, scale=0.2, shift=1.0), t=rnd(C, scale=0.1),
+        r=rnd(B, C, scale=0.2, shift=1.0), b=rnd(B, C, scale=0.1), wr=rnd(C, scale=0.3),
+    )
+    a64 = {k: v.double() for k, v in a.items()}
+    want = block_epilogue(
+        dilated_conv(a64["x"], a64["w"], d), a64["x"], *(a64[k] for k in "strb"), a64["wr"]
+    )
+    scale = want.abs().max().item()
+    kernel_err = (tcn_block(**a, d=d).double() - want).abs().max().item()
+    plain_err = (tcn_block_reference(**a, d=d).double() - want).abs().max().item()
+    out = {
+        "B": B, "T": T, "d": d, "max_abs_ref_float64": scale,
+        "kernel_err": kernel_err, "kernel_rel_err": kernel_err / scale,
+        "plain_float32_err": plain_err, "plain_float32_rel_err": plain_err / scale,
+        "tol": F64_TOL,
+    }
+    if not kernel_err <= F64_TOL * scale:
+        raise AssertionError(f"tcn_block float32 is not float32-accurate against float64: {out}")
     return out
 
 
@@ -211,6 +286,9 @@ def synthetic_stems(rng, S: int, T: int) -> np.ndarray:
 
 
 def phase_device_and_build():
+    """Builds every source; fails on a register spill in nvcc's ``-Xptxas
+    -v`` output (a library already built from the same source and flags is
+    loaded as it is, with no output to check)."""
     t0 = time.perf_counter()
     import torch
 
@@ -224,25 +302,33 @@ def phase_device_and_build():
     names = ("tcn_block", "envelope")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         built = dict(zip(names, pool.map(build.build, names)))
+    ptxas = {
+        n: [line.strip() for line in out.splitlines() if "registers" in line or "spill" in line]
+        for n, (_, out) in built.items()
+    }
     emit(
         "device_and_build", t0, nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda,
-        libraries={n: os.path.basename(p) for n, (p, _) in built.items()},
-        ptxas={
-            n: [line.strip() for line in out.splitlines() if "registers" in line or "spill" in line]
-            for n, (_, out) in built.items()
-        },
+        libraries={n: os.path.basename(p) for n, (p, _) in built.items()}, ptxas=ptxas,
     )
+    spilled = {
+        n: lines for n, lines in ptxas.items()
+        if any(int(b) for line in lines for b in re.findall(r"(\d+) bytes spill", line))
+    }
+    if spilled:
+        raise AssertionError(f"ptxas reports register spills: {spilled}")
     return smi
 
 
 def phase_kernel_vs_plain():
-    """Returns the cases at the interpolation dispatch's shape."""
+    """Returns the cases at the interpolation dispatch's shape and the
+    float64 case."""
     t0 = time.perf_counter()
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases, interp = [], []
+    f64 = float64_case(2, 16384, 64, gen)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (8, 64, 512, 4096, 8192):
             cases.append(block_case(2, T_SEG, d, dtype, gen, time_it=True))
@@ -251,8 +337,8 @@ def phase_kernel_vs_plain():
             interp.append(block_case(INTERP_B, INTERP_T, d, dtype, gen, time_it=True, reps=2))
         cases.append(block_case(4, 2**16 + 3, 8, dtype, gen, time_it=False))  # B = 4
         cases.append(block_case(1, 1, 64, dtype, gen, time_it=False))  # one row
-    emit("kernel_vs_plain", t0, cases=cases + interp)
-    return interp
+    emit("kernel_vs_plain", t0, cases=cases + interp, float64=f64)
+    return interp, f64
 
 
 def envelope_bound(L: int, T: int) -> dict:
@@ -568,6 +654,7 @@ def summary(cases) -> dict:
     dilation): the largest error, and times and bounds averaged."""
     return {
         "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_rel_err": max(c["rel_err"] for c in cases),
         **{k: float(np.mean([c[k] for c in cases]))
            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": cases[0]["bound_by"],
@@ -575,7 +662,7 @@ def summary(cases) -> dict:
     }
 
 
-def phase_kernels_line(launches: int, interp_cases, env_launches: int, env, t_all: float):
+def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -585,12 +672,11 @@ def phase_kernels_line(launches: int, interp_cases, env_launches: int, env, t_al
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    main = {
-        dtype: summary(
-            [block_case(MAIN_B, T_SEG, d, dtype, gen, time_it=True, reps=2) for d in DILATIONS]
-        )
+    main_cases = {
+        dtype: [block_case(MAIN_B, T_SEG, d, dtype, gen, time_it=True, reps=2) for d in DILATIONS]
         for dtype in (torch.float32, torch.bfloat16)
     }
+    main = {dtype: summary(cases) for dtype, cases in main_cases.items()}
     interp = {
         name: summary([c for c in interp_cases if c["dtype"] == name])
         for name in ("float32", "bfloat16")
@@ -610,6 +696,10 @@ def phase_kernels_line(launches: int, interp_cases, env_launches: int, env, t_al
         "library_ms": f32["library_ms"],
         "shape": [MAIN_B, T_SEG, 128],
         "dtype": "float32",
+        "float32_method": "3xTF32 on wgmma (small*big + big*small + big*big, tf32 parts "
+                          "rounded to nearest; per-stage sums added in float32)",
+        "max_rel_err": max(f32["max_rel_err"], interp["float32"]["max_rel_err"]),
+        "float64": f64,
         "per_dilation_ms": f32["per_dilation_ms"],
         "bfloat16": main[torch.bfloat16],
         "interpolation": {"shape": [INTERP_B, INTERP_T, 128], **interp},
@@ -632,7 +722,8 @@ def phase_kernels_line(launches: int, interp_cases, env_launches: int, env, t_al
         "dtype": "float32",
         "final": final,
     }
-    emit("kernels_line", t0, total_s=round(time.perf_counter() - t_all, 3))
+    emit("kernels_line", t0, cases=[c for cases in main_cases.values() for c in cases],
+         total_s=round(time.perf_counter() - t_all, 3))
     return {"kernels": [entry, envelope]}
 
 
@@ -649,13 +740,13 @@ def main() -> int:
     t_all = time.perf_counter()
     smi = phase_device_and_build()
     with full_float32():
-        interp_cases = phase_kernel_vs_plain()
+        interp_cases, f64 = phase_kernel_vs_plain()
     env = phase_envelope_vs_plain()
     launches, env_launches = phase_main_path()  # PyTorch's default flags, as the CLI runs
     phase_normalizer_card_vs_cpu()
     phase_cli()
     with full_float32():
-        kernels = phase_kernels_line(launches, interp_cases, env_launches, env, t_all)
+        kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1,390 +1,549 @@
 // Fused MixFXcloner block for NVIDIA Hopper (sm_90a).
 //
-// Replaces music_mixing_style_transfer_tpu/ops/pallas/tcn_block.py:fused_tcn_block.
-// One pass over device memory computes, for channels-last x [B, T, 128]:
+// Replaces music_mixing_style_transfer_tpu/ops/pallas/tcn_block.py:fused_tcn_block
+// (pallas_call at :201). One pass over device memory computes, for
+// channels-last x [B, T, 128]:
 //
 //   y[b,t,o] = lrelu(sum_k sum_i x[b, t+(k-7)d, i] * w[k][i][o] * s[o] + tt[o], 0.01)
 //              * r[b,o] + fb[b,o] + x[b,t,o] * wr[o]
 //
 // i.e. a 15-tap dilated conv with zero padding of 7*d on each side, eval BN
 // folded to (s, tt), FiLM (r, fb) per batch row, and the per-channel grouped
-// 1x1 residual wr. x, w and y are float32 or bfloat16; s, tt, r, fb and wr are
-// float32; accumulation and the epilogue are float32.
+// 1x1 residual wr. Accumulation and the epilogue are float32.
 //
-// Design: an implicit GEMM. Each block owns BM = 128 time rows of one batch
-// row and all 128 output channels, and walks the 15 taps x the 128 input
-// channels in chunks. Per chunk it stages the shifted input rows
-// t0 + (k-7)*d (zero outside [0, T)) and the chunk of w[k] in shared memory,
-// double-buffered, the next chunk's loads in flight during the current
-// chunk's products, and applies the whole epilogue in registers before one
-// store. The TPU kernel's folded [B, T/d, d, C] tiling exists for the TPU's
-// (8, 128) layout and has no counterpart: output row t reads input rows
-// t + (k-7)*d directly, so any T >= 1 and any d >= 1 work, and the ragged
-// last tile is masked. Offsets are 64-bit: B*T*C reaches 2^31 at B = 32,
-// T = 2^19.
+// Design: an implicit GEMM on the tensor cores, one skeleton for both types.
+// - Tiles of BM time rows of one batch row x all 128 output channels (BM =
+//   256 in bf16, 128 in float32). The GEMM's K runs over the live taps x 128
+//   input channels, in stages of one 128-byte channel chunk (64 bf16 or 32
+//   float32 channels).
+// - TMA loads both operands into a ring of 4 stages in shared memory,
+//   128-byte swizzled. x goes through a 3-D tensor map over [B, T, C]: tap k
+//   of the tile at t0 is the box at row t0 + (k-7)*d, and TMA zero-fills the
+//   rows outside [0, T), which is the conv's zero padding. w comes as
+//   w_t[k][out][in] (K-major, laid out by the wrapper) through a 2-D map.
+// - Warp specialisation: one producer warp keeps the ring full (full/empty
+//   mbarrier pairs); two consumer warpgroups each own BM/2 of the tile's
+//   rows and issue wgmma m64n128 with the accumulators in registers.
+//   setmaxnreg moves registers from the producer warpgroup to the consumers.
+// - Persistent grid: one CTA per SM; CTA i takes tiles i, i+G, ... in time
+//   order, so the tap windows of the tiles in flight share L2. The producer
+//   runs ahead into the next tile's stages while the consumers apply the
+//   epilogue (BN affine, LeakyReLU, FiLM, residual) in registers and store.
+// - Dead taps are skipped: tap k of a tile is live unless its rows lie
+//   wholly outside [0, T). The live taps form one contiguous range that the
+//   producer and the consumers compute alike; tap 7 is always live.
+// - bfloat16: wgmma m64n128k16, both operands from shared memory.
+// - float32: 3xTF32 on wgmma m64n128k8. The wrapper splits w into
+//   w_big = tf32(w) and w_small = tf32(w - w_big), rounded to nearest (ties
+//   away) explicitly; the consumers load x from shared memory into
+//   registers and split it the same way with cvt.rna.tf32, and each k-step
+//   issues small*big, big*small and big*big. Each product of two tf32 values
+//   is exact in float32; what is dropped is small*small (~2^-22 of a term).
+//   The tensor cores' float32 accumulation is not round-to-nearest, so each
+//   stage's products are summed in a zeroed register tile and added to the
+//   accumulator in float32; that needs the registers of BM = 128. The result
+//   has float32's accuracy, measured against float64 in PERF.md. (The TPU
+//   gets float32 the same way: its MXU builds a float32 product from several
+//   bf16 passes.)
 //
-// - float32: CUDA-core FMAs in exact float32. 256 threads each keep an 8 x 8
-//   tile of accumulators (64 FMAs per 4 shared-memory loads); chunks of 16
-//   input channels staged through registers.
-// - bfloat16: tensor cores, mma.sync m16n8k16 (bf16 in, float32 sums). 8
-//   warps as 4 x 2, each 32 rows x 64 channels; chunks of 32 input channels
-//   copied with cp.async (zero-fill outside [0, T)) and read with ldmatrix
-//   (.trans for w, which stays w[k][in][out]).
+// Bound: tensor-core operations. One launch at [4, 2^19, 128] is about
+// 1.02e12 operations (2 per multiply-add) on the taps inside [0, T): 1.03 ms
+// at the H100 SXM's 989 TFLOP/s bf16 peak; float32 runs 3 TF32 passes at
+// 495 TFLOP/s, 6.19 ms (15.25 ms on the CUDA cores at 67 TFLOP/s). It moves
+// 1.07 GB in bf16 and 2.15 GB in float32 (0.32 and 0.64 ms at 3.35 TB/s).
+// L2 -> shared-memory traffic, derived from the tiling (not measured):
+// every tile reads each live tap's x rows and w chunk(s), 12.1 GB per bf16
+// launch and 48.3 GB per float32 launch at [4, 2^19, 128].
 //
-// Bound: compute. At [4, 2^19, 128] one launch is 1.03e12 operations
-// (2*15*128*128 per output element): at least 1.04 ms at the H100 SXM's
-// 989 TFLOP/s bf16 tensor-core peak and 15.4 ms at its 67 TFLOP/s float32
-// rate. It moves 1.07 GB in bf16 (0.32 ms at 3.35 TB/s) and 2.15 GB in
-// float32 (0.64 ms). The float32 path's floor is the CUDA cores' rate; the
-// bf16 path uses mma.sync, which reaches only part of the wgmma peak, with a
-// two-stage pipeline and no warp specialisation. wgmma with TMA and a
-// persistent grid is the step toward the bf16 bound.
-//
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W limit), per
-// launch at [4, 2^19, 128], mean of the 11 main-path dilations: float32
-// 25.4 ms (bound 15.2 ms: 60% of the float32 rate), bf16 3.69 ms (bound
-// 1.03 ms: 28% of the tensor-core peak). cuDNN's F.conv1d for the conv alone,
-// without the epilogue: 23.2 ms and 3.39 ms. Details in PERF.md.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, per launch, mean of the 11 dilations 8...8192 (bound beside it):
+//   [4, 2^19, 128]:     float32 7.68 ms (6.19), bfloat16 1.86 ms (1.03)
+//   [128, 17477, 128]:  float32 6.62 ms (5.20), bfloat16 1.73 ms (0.89)
+// cuDNN's F.conv1d alone (TF32 off) takes 23.56 / 3.39 and 25.07 / 3.54 ms
+// there. PERF.md section 6 keeps these with the earlier kernel's times.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime's entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int C = 128;
 constexpr int TAPS = 15;
 constexpr int HALF = TAPS / 2;
-constexpr int BM = 128;  // time rows per block
-constexpr int THREADS = 256;
+constexpr int CONSUMERS = 2;            // consumer warpgroups, BM / 2 rows each
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int ROW_BYTES = 128;          // one channel chunk: the B128 swizzle width
+constexpr int W_BYTES = C * ROW_BYTES;   // w box of one stage (per part)
+constexpr int RELEASERS = CONSUMERS * 4;  // one arrive per consumer warp frees a stage
+constexpr int CONSUMER_REGS = 232;      // setmaxnreg: consumers take what the producer gives up
+constexpr int PRODUCER_REGS = 40;
 constexpr float SLOPE = 0.01f;
 
-__device__ __forceinline__ float epilogue(float acc, float s, float t, float r, float b,
-                                          float wr, float x) {
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int BM = 256;    // time rows per tile
+  static constexpr int STAGES = 4;
+  static constexpr int CH = 64;     // channels per stage
+  static constexpr int PARTS = 1;   // w
+  static constexpr CUtensorMapDataType DT = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int BM = 128;    // 64 rows a warpgroup: room for the per-stage sums
+  static constexpr int STAGES = 4;
+  static constexpr int CH = 32;
+  static constexpr int PARTS = 2;   // w_big, w_small
+  static constexpr CUtensorMapDataType DT = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+template <typename T>
+__host__ __device__ constexpr int x_bytes() { return Cfg<T>::BM * ROW_BYTES; }  // x box of a stage
+
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() { return x_bytes<T>() + Cfg<T>::PARTS * W_BYTES; }
+
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {  // + 1 KB to align the ring to the swizzle's 1024-byte atom
+  return 1024 + Cfg<T>::STAGES * stage_bytes<T>() + 2 * Cfg<T>::STAGES * 8;
+}
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spins until the barrier's phase differs from `parity`. A wait of more
+// than 2^32 cycles (~2 s; no stage of a launch takes a millisecond) is a
+// pipeline fault: it traps, an error the caller sees, instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > (1ll << 32)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in a 128-byte-swizzled tile whose
+// rows are 128 bytes: 8-row groups 1024 bytes apart (SBO), layout B128. A
+// k-step inside the row advances the start address.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define D8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+#define R64                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "   \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64] += A (64 x 16, shared memory) * B (16 x 128, shared memory), bf16 in
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64] += A (64 x 8, registers, tf32) * B (8 x 128, shared memory, tf32)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef D8
+#undef D64
+#undef R64
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {  // round to nearest, ties away
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float epilogue(float acc, float s, float t, float r, float b, float wr,
+                                          float x) {
   float v = acc * s + t;
   v = v >= 0.f ? v : SLOPE * v;
   return v * r + b + x * wr;
 }
 
-// ---------------------------------------------------------------- float32
+struct Tile {
+  int64_t b, t0;
+  int k_lo, n_taps;
+};
 
-constexpr int F_BK = 16;                 // input channels per stage
-constexpr int F_ITERS = TAPS * (C / F_BK);
-constexpr int F_APAD = 4;                // keeps float4 alignment of As rows
-
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+// Tile i in time order, and its live taps: k is dead when its rows
+// [t0 + (k-7)d, t0 + (k-7)d + BM) lie wholly outside [0, T).
+template <int BM>
+__device__ __forceinline__ Tile tile_at(int64_t i, int64_t tiles_per_b, int64_t t_len, int d) {
+  Tile tl;
+  tl.b = i / tiles_per_b;
+  tl.t0 = (i % tiles_per_b) * BM;
+  int k_lo = 0, k_hi = TAPS - 1;
+  while (tl.t0 + static_cast<int64_t>(k_lo - HALF) * d + BM <= 0) ++k_lo;
+  while (tl.t0 + static_cast<int64_t>(k_hi - HALF) * d >= t_len) --k_hi;
+  tl.k_lo = k_lo;
+  tl.n_taps = k_hi - k_lo + 1;
+  return tl;
 }
 
-// row (or column) owned by slot j of a thread at position p in 0..15:
-// slots 0-3 -> 4p..4p+3, slots 4-7 -> 64+4p..64+4p+3
-__device__ __forceinline__ int lane_index(int p, int j) {
-  return (j < 4) ? 4 * p + j : 64 + 4 * p + (j - 4);
-}
+// ------------------------------------------------------------ the kernel
 
-__global__ void __launch_bounds__(THREADS)
-tcn_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ s, const float* __restrict__ tt,
-                     const float* __restrict__ r, const float* __restrict__ fb,
-                     const float* __restrict__ wr, float* __restrict__ y,
-                     int64_t t_len, int64_t tiles, int d) {
-  __shared__ __align__(16) float As[2][F_BK][BM + F_APAD];  // [stage][in ch][row]
-  __shared__ __align__(16) float Bs[2][F_BK][C];            // [stage][in ch][out ch]
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+tcn_block_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const T* __restrict__ x, const float* __restrict__ s,
+                 const float* __restrict__ tt, const float* __restrict__ r,
+                 const float* __restrict__ fb, const float* __restrict__ wr, T* __restrict__ y,
+                 int64_t t_len, int64_t tiles_per_b, int64_t n_tiles, int d) {
+  constexpr int STAGES = Cfg<T>::STAGES;
+  constexpr int CH = Cfg<T>::CH;
+  constexpr int CHUNKS = C / CH;
+  constexpr int SB = stage_bytes<T>();
+  constexpr int BM = Cfg<T>::BM;
+  constexpr int X_BYTES = x_bytes<T>();
+  constexpr int HALVES = BM / (CONSUMERS * 64);  // 64-row wgmma tiles a warpgroup owns
 
-  const int tid = threadIdx.x;
-  const int64_t bb = static_cast<int64_t>(blockIdx.x) / tiles;
-  const int64_t t0 = (static_cast<int64_t>(blockIdx.x) % tiles) * BM;
-  const float* xb = x + bb * t_len * C;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem);  // stage j: x box, then w box(es)
+  const uint32_t full = ring + STAGES * SB;
+  const uint32_t empty = full + STAGES * 8;
 
-  // staging roles: A is 128 rows x 16 channels, B is 16 channels x 128
-  const int a_row = tid & (BM - 1);
-  const int a_ch = (tid >> 7) * 8;
-  const int b_row = tid >> 4;
-  const int b_col = (tid & 15) * 8;
-  // compute roles: rows lane_index(ty, i), columns lane_index(tx, j)
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float ra[8], rb[8];
-  auto fetch = [&](int it) {
-    const int k = it / (C / F_BK);
-    const int c0 = (it % (C / F_BK)) * F_BK;
-    const int64_t src = t0 + a_row + static_cast<int64_t>(k - HALF) * d;
-    if (src >= 0 && src < t_len) {
-      load4(xb + src * C + c0 + a_ch, ra);
-      load4(xb + src * C + c0 + a_ch + 4, ra + 4);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ra[j] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < STAGES; ++j) {
+      mbar_init(full + 8 * j, 1);
+      mbar_init(empty + 8 * j, RELEASERS);
     }
-    const float* wp = w + (static_cast<int64_t>(k) * C + c0 + b_row) * C + b_col;
-    load4(wp, rb);
-    load4(wp + 4, rb + 4);
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) As[buf][a_ch + j][a_row] = ra[j];
-    *reinterpret_cast<float4*>(&Bs[buf][b_row][b_col]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-    *reinterpret_cast<float4*>(&Bs[buf][b_row][b_col + 4]) = make_float4(rb[4], rb[5], rb[6], rb[7]);
-  };
-
-  fetch(0);
-  stash(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int it = 0; it < F_ITERS; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < F_ITERS) fetch(it + 1);
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[8], b[8];
-      load4(&As[cur][kk][4 * ty], a);
-      load4(&As[cur][kk][64 + 4 * ty], a + 4);
-      load4(&Bs[cur][kk][4 * tx], b);
-      load4(&Bs[cur][kk][64 + 4 * tx], b + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (it + 1 < F_ITERS) stash(cur ^ 1);
-    __syncthreads();
-  }
 
-  // epilogue: BN affine, LeakyReLU, FiLM, residual, all in registers
-  float sv[8], tv[8], rv[8], bv[8], wv[8];
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int64_t i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+        const Tile tl = tile_at<BM>(i, tiles_per_b, t_len, d);
+        for (int k = tl.k_lo; k < tl.k_lo + tl.n_taps; ++k) {
+          const int row = static_cast<int>(tl.t0 + static_cast<int64_t>(k - HALF) * d);
+          for (int c = 0; c < CHUNKS; ++c) {
+            mbar_wait(empty + 8 * stage, phase ^ 1);
+            const uint32_t bar = full + 8 * stage;
+            const uint32_t dst = ring + stage * SB;
+            mbar_expect_tx(bar, SB);
+            tma_load_3d(dst, &xmap, bar, c * CH, row, static_cast<int>(tl.b));
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int o = lane_index(tx, j);
-    sv[j] = s[o];
-    tv[j] = tt[o];
-    rv[j] = r[bb * C + o];
-    bv[j] = fb[bb * C + o];
-    wv[j] = wr[o];
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t row = t0 + lane_index(ty, i);
-    if (row >= t_len) continue;
-    const float* xr = xb + row * C;
-    float* yr = y + (bb * t_len + row) * C;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int o0 = h * 64 + 4 * tx;
-      float xin[4], out[4];
-      load4(xr + o0, xin);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = 4 * h + j;
-        out[j] = epilogue(acc[i][q], sv[q], tv[q], rv[q], bv[q], wv[q], xin[j]);
-      }
-      *reinterpret_cast<float4*>(yr + o0) = make_float4(out[0], out[1], out[2], out[3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- bfloat16
-
-constexpr int H_BK = 32;                  // input channels per stage
-constexpr int H_ITERS = TAPS * (C / H_BK);
-constexpr int H_AST = H_BK + 8;           // As row stride (halves): 80 B, ldmatrix conflict-free
-constexpr int H_BST = C + 8;              // Bs row stride (halves): 272 B
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-tcn_block_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ s, const float* __restrict__ tt,
-                      const float* __restrict__ r, const float* __restrict__ fb,
-                      const float* __restrict__ wr, __nv_bfloat16* __restrict__ y,
-                      int64_t t_len, int64_t tiles, int d) {
-  __shared__ __align__(128) __nv_bfloat16 As[2][BM * H_AST];    // [stage][row][in ch]
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][H_BK * H_BST];  // [stage][in ch][out ch]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp & 3;   // rows wm*32 .. +32
-  const int wn = warp >> 2;  // channels wn*64 .. +64
-  const int64_t bb = static_cast<int64_t>(blockIdx.x) / tiles;
-  const int64_t t0 = (static_cast<int64_t>(blockIdx.x) % tiles) * BM;
-  const __nv_bfloat16* xb = x + bb * t_len * C;
-
-  // one stage: A = 128 rows x 32 channels, B = 32 channels x 128, 16-byte
-  // pieces, two of each per thread
-  auto load_stage = [&](int it, int buf) {
-    const int k = it / (C / H_BK);
-    const int c0 = (it % (C / H_BK)) * H_BK;
-    const int64_t shift = static_cast<int64_t>(k - HALF) * d;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int piece = tid + THREADS * j;
-      const int row = piece >> 2;
-      const int col = (piece & 3) * 8;
-      const int64_t src = t0 + row + shift;
-      const bool ok = src >= 0 && src < t_len;
-      cp_async16(smem_addr(&As[buf][row * H_AST + col]), ok ? xb + src * C + c0 + col : xb,
-                 ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int piece = tid + THREADS * j;
-      const int krow = piece >> 4;
-      const int col = (piece & 15) * 8;
-      cp_async16(smem_addr(&Bs[buf][krow * H_BST + col]),
-                 w + (static_cast<int64_t>(k) * C + c0 + krow) * C + col, 16);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
-
-  // ldmatrix row addresses: lane -> matrix q = lane/8, row i = lane%8
-  const int lq = lane >> 3;
-  const int li = lane & 7;
-
-  load_stage(0, 0);
-  for (int it = 0; it < H_ITERS; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < H_ITERS) {
-      load_stage(it + 1, cur ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int row = wm * 32 + m * 16 + li + ((lq & 1) << 3);
-        const int col = kk + ((lq >> 1) << 3);
-        ldmatrix_x4(smem_addr(&As[cur][row * H_AST + col]), a[m]);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {  // pairs of 8-channel tiles
-        uint32_t b[4];
-        const int krow = kk + li + ((lq & 1) << 3);
-        const int col = wn * 64 + np * 16 + ((lq >> 1) << 3);
-        ldmatrix_x4_trans(smem_addr(&Bs[cur][krow * H_BST + col]), b);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma_bf16(acc[m][2 * np], a[m], b[0], b[1]);
-          mma_bf16(acc[m][2 * np + 1], a[m], b[2], b[3]);
+            for (int p = 0; p < Cfg<T>::PARTS; ++p)
+              tma_load_2d(dst + X_BYTES + p * W_BYTES, &wmap, bar, c * CH, (p * TAPS + k) * C);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
         }
       }
     }
-    __syncthreads();
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const uint32_t rows = wg * HALVES * 64 * ROW_BYTES;  // this warpgroup's rows in a stage
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[HALVES][64];  // [64-row half][wgmma fragment]
 
-  // epilogue: thread holds rows g, g+8 and channels 2*tig, 2*tig+1 of each
-  // 16 x 8 tile
-  const int g = lane >> 2;
-  const int tig = lane & 3;
+    for (int64_t i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+      const Tile tl = tile_at<BM>(i, tiles_per_b, t_len, d);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int o = wn * 64 + n * 8 + 2 * tig;
-    const float2 sv = *reinterpret_cast<const float2*>(s + o);
-    const float2 tv = *reinterpret_cast<const float2*>(tt + o);
-    const float2 rv = *reinterpret_cast<const float2*>(r + bb * C + o);
-    const float2 bv = *reinterpret_cast<const float2*>(fb + bb * C + o);
-    const float2 wv = *reinterpret_cast<const float2*>(wr + o);
+      for (int h = 0; h < HALVES; ++h)
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+        for (int q = 0; q < 64; ++q) acc[h][q] = 0.f;
+
+      const int iters = tl.n_taps * CHUNKS;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        int prev = 0;
+        for (int it = 0; it < iters; ++it) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t xs = ring + stage * SB + rows;
+          const uint32_t ws = ring + stage * SB + X_BYTES;
+          wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t row = t0 + wm * 32 + m * 16 + g + 8 * h;
-        if (row >= t_len) continue;
-        const float2 xin = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(xb + row * C + o));
-        const float v0 = epilogue(acc[m][n][2 * h], sv.x, tv.x, rv.x, bv.x, wv.x, xin.x);
-        const float v1 = epilogue(acc[m][n][2 * h + 1], sv.y, tv.y, rv.y, bv.y, wv.y, xin.y);
-        *reinterpret_cast<__nv_bfloat162*>(y + (bb * t_len + row) * C + o) =
-            __floats2bfloat162_rn(v0, v1);
+          for (int kk = 0; kk < 4; ++kk) {  // k16 steps of 32 bytes
+            const uint64_t db = desc_b128(ws + 32 * kk);
+#pragma unroll
+            for (int h = 0; h < HALVES; ++h)
+              wgmma_bf16(acc[h], desc_b128(xs + h * 64 * ROW_BYTES + 32 * kk), db);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's products are done: free it
+          if (it > 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * prev);
+          }
+          prev = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      } else {
+        // 3xTF32. A fragment of m64n128k8 for warp w: rows 16w + g (+8),
+        // columns tig (+4) of the k-step. In the swizzled stage, 16-byte
+        // chunk j of row r sits at chunk j ^ (r % 8), and r % 8 == g.
+        // The tensor cores' float32 accumulation does not round to nearest
+        // (a bias of ~1.5e-5 of max|y| over 720 accumulating wgmmas, on the
+        // H100): each stage's products go into a zeroed `part`, which is
+        // added to `acc` with a rounded float32 add. acc, part and the
+        // stage's A fragments fit the consumers' registers with 64 rows a
+        // warpgroup (BM = 128), not with 128.
+        for (int it = 0; it < iters; ++it) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t wb = ring + stage * SB + X_BYTES;
+          const uint32_t wsm = wb + W_BYTES;
+          const float* xrow0 =
+              reinterpret_cast<const float*>(smem + stage * SB + rows) + (warp * 16 + g) * 32;
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h) {
+            const float* p = xrow0 + h * 64 * 32;
+            uint32_t big[4][4], small[4][4];  // [k-step][fragment]
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int lo = ((2 * kk) ^ g) * 4 + tig;
+              const int hi = ((2 * kk + 1) ^ g) * 4 + tig;
+              const float v[4] = {p[lo], p[8 * 32 + lo], p[hi], p[8 * 32 + hi]};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                big[kk][q] = to_tf32(v[q]);
+                small[kk][q] = to_tf32(v[q] - __uint_as_float(big[kk][q]));
+              }
+            }
+            float part[64];
+#pragma unroll
+            for (int q = 0; q < 64; ++q) part[q] = 0.f;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t db = desc_b128(wb + 32 * kk);
+              wgmma_tf32(part, small[kk], db);
+              wgmma_tf32(part, big[kk], desc_b128(wsm + 32 * kk));
+              wgmma_tf32(part, big[kk], db);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int q = 0; q < 64; ++q) acc[h][q] += part[q];
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * stage);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+
+      // epilogue: fragment q of 8-column block j is row 16*warp + g + 8*((q>>1)&1),
+      // column 8j + 2*tig + (q&1), in each 64-row half
+      const int64_t row0 = tl.t0 + wg * HALVES * 64 + warp * 16 + g;
+      const T* xb = x + tl.b * t_len * C;
+      T* yb = y + tl.b * t_len * C;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int o = 8 * j + 2 * tig;
+        const float2 sv = load2(s + o), tv = load2(tt + o), wv = load2(wr + o);
+        const float2 rv = load2(r + tl.b * C + o), bv = load2(fb + tl.b * C + o);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int64_t row = row0 + 64 * h + 8 * e;
+            if (row >= t_len) continue;
+            const float2 xin = load2(xb + row * C + o);
+            store2(yb + row * C + o,
+                   epilogue(acc[h][4 * j + 2 * e], sv.x, tv.x, rv.x, bv.x, wv.x, xin.x),
+                   epilogue(acc[h][4 * j + 2 * e + 1], sv.y, tv.y, rv.y, bv.y, wv.y, xin.y));
+          }
       }
     }
   }
 }
 
-bool grid_size(long long batch, long long t_len, int d, long long* tiles, unsigned* blocks) {
-  if (batch <= 0 || t_len <= 0 || d <= 0) return false;
-  *tiles = (t_len + BM - 1) / BM;
-  const long long n = batch * *tiles;
-  if (n > 0x7fffffffLL) return false;
-  *blocks = static_cast<unsigned>(n);
-  return true;
+// ------------------------------------------------------------ host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 128-byte-swizzled tensor map over a row-major array with 128 elements a
+// row: dims[0] = 128 (channels), box = one 128-byte chunk x box_rows x 1.
+template <typename T>
+bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[2] = {C * sizeof(T), dims[1] * C * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Cfg<T>::CH), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, Cfg<T>::DT, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* s, const void* tt, const void* r,
+           const void* fb, const void* wr, void* y, long long batch, long long t_len, int d,
+           void* stream) {
+  // TMA coordinates are 32-bit: every row a tap reads must fit in int32
+  if (batch <= 0 || t_len <= 0 || d <= 0 || batch > 0x7fffffffLL ||
+      t_len + Cfg<T>::BM + static_cast<long long>(HALF) * d > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[3] = {C, static_cast<cuuint64_t>(t_len), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t wdims[2] = {C, static_cast<cuuint64_t>(Cfg<T>::PARTS * TAPS * C)};
+  if (!encode<T>(&xmap, x, 3, xdims, Cfg<T>::BM) || !encode<T>(&wmap, w, 2, wdims, C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(tcn_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<T>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles_per_b = (t_len + Cfg<T>::BM - 1) / Cfg<T>::BM;
+  const long long n_tiles = batch * tiles_per_b;
+  const unsigned grid = static_cast<unsigned>(n_tiles < sms ? n_tiles : sms);
+  tcn_block_kernel<T><<<grid, THREADS, smem_bytes<T>(), static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<const T*>(x), static_cast<const float*>(s),
+      static_cast<const float*>(tt), static_cast<const float*>(r), static_cast<const float*>(fb),
+      static_cast<const float*>(wr), static_cast<T*>(y), t_len, tiles_per_b, n_tiles, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C interface (bound with ctypes). Pointers are device pointers of
-// contiguous tensors: x, y [B, T, 128] and w [15, 128, 128] (w[k][in][out])
-// in the kernel's type; s, tt, wr [128] and r, fb [B, 128] in float32.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+// contiguous, 16-byte-aligned tensors: x, y [B, T, 128] in the kernel's
+// type; w K-major as w_t[k][out][in] (bf16: [15, 128, 128]; float32:
+// [2, 15, 128, 128], w_big then w_small, both tf32-rounded); s, tt, wr [128]
+// and r, fb [B, 128] in float32. Launches on `stream`, does not
+// synchronise, returns a CUDA error code (0 on success).
 extern "C" int tcn_block_f32(const void* x, const void* w, const void* s, const void* tt,
                              const void* r, const void* fb, const void* wr, void* y,
                              long long batch, long long t_len, int d, void* stream) {
-  long long tiles;
-  unsigned blocks;
-  if (!grid_size(batch, t_len, d, &tiles, &blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  tcn_block_f32_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(s),
-      static_cast<const float*>(tt), static_cast<const float*>(r),
-      static_cast<const float*>(fb), static_cast<const float*>(wr), static_cast<float*>(y),
-      t_len, tiles, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, w, s, tt, r, fb, wr, y, batch, t_len, d, stream);
 }
 
 extern "C" int tcn_block_bf16(const void* x, const void* w, const void* s, const void* tt,
                               const void* r, const void* fb, const void* wr, void* y,
                               long long batch, long long t_len, int d, void* stream) {
-  long long tiles;
-  unsigned blocks;
-  if (!grid_size(batch, t_len, d, &tiles, &blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  tcn_block_bf16_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(s), static_cast<const float*>(tt),
-      static_cast<const float*>(r), static_cast<const float*>(fb),
-      static_cast<const float*>(wr), static_cast<__nv_bfloat16*>(y), t_len, tiles, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch<__nv_bfloat16>(x, w, s, tt, r, fb, wr, y, batch, t_len, d, stream);
+}
+
+// The tiling of the float32 (fp32 != 0) or bf16 kernel: time rows a tile
+// and w boxes a stage, for figures derived from it (L2 traffic).
+extern "C" void tcn_block_tiling(int fp32, int* rows, int* w_parts) {
+  *rows = fp32 ? Cfg<float>::BM : Cfg<__nv_bfloat16>::BM;
+  *w_parts = fp32 ? Cfg<float>::PARTS : Cfg<__nv_bfloat16>::PARTS;
 }

@@ -16,9 +16,10 @@ unless the caller passes ``device="cpu"``. In ``bfloat16`` every parameter,
 BN statistics and FiLM weights included, is cast to bfloat16, as in the JAX
 engine; the fused blocks fold BN and FiLM in float32 from the cast values.
 The engine owns its precision: its forward passes run with TF32 off in
-cuDNN convolutions and matmuls (``_engine_forward``), so ``float32`` means
-full float32 whatever PyTorch's process-wide flags say, and they are
-restored afterwards.
+cuDNN convolutions and matmuls (``_engine_forward``), whatever PyTorch's
+process-wide flags say, and they are restored afterwards. The fused blocks
+(K1) compute their float32 products as 3xTF32 on the tensor cores, at
+float32's accuracy (measured against float64 in ``PERF.md``).
 
 FX normalization always runs in float32, also under a bf16 engine. Not
 ported: the device mesh and ``sequence_parallel`` (one card).

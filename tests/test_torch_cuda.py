@@ -16,6 +16,8 @@ from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
     envelope_reference,
 )
 from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import (
+    block_epilogue,
+    dilated_conv,
     tcn_block,
     tcn_block_reference,
 )
@@ -51,13 +53,21 @@ def _inputs(seed, B, T, dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,T,d",
-    [(2, 4096, 8), (3, 17477, 8192), (4, 1000, 64), (1, 1, 64)],
+    [
+        (2, 4096, 8), (3, 17477, 8192), (4, 1000, 64), (1, 1, 64),
+        (3, 133 * 256 + 77, 16),  # 400 tiles: not a multiple of the persistent grid
+        (2, 100, 8),              # T < one tile of 256 rows
+        (1, 1, 8192),             # T = 1, only tap 7 live
+        (2, 5000, 8192),          # T < 7*d: dead taps skipped
+        (1, 1000, 1),             # d = 1
+    ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(card, B, T, d, dtype):
     """Ragged T (< 7*d, not a multiple of d or of the tile), B > 1 with
-    distinct FiLM rows. float32: 1e-4 of max|plain|; bf16: 2e-2 of the
-    float32 plain version on the same bf16-rounded inputs."""
+    distinct FiLM rows, dead taps, a ragged persistent grid. float32
+    (3xTF32): 1e-4 of max|plain|; bf16: 2e-2 of the float32 plain version
+    on the same bf16-rounded inputs."""
     a = _inputs(B * T + d, B, T, card, dtype)
     before = tcn_block.launches
     got = tcn_block(**a, d=d)
@@ -67,6 +77,21 @@ def test_kernel_matches_plain_version(card, B, T, d, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype and got.shape == (B, T, C)
     assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 1024])
+def test_float32_kernel_has_float32_accuracy(card, d):
+    """3xTF32 against a float64 run of the plain version: within 1e-5 of
+    max|float64|, as close as float32 itself gets (1xTF32 is ~3e-4)."""
+    a = _inputs(d, 2, 16384, card, torch.float32)
+    got = tcn_block(**a, d=d).double()
+    a64 = {k: v.double() for k, v in a.items()}
+    want = block_epilogue(
+        dilated_conv(a64["x"], a64["w"], d), a64["x"], *(a64[k] for k in "strb"), a64["wr"]
+    )
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 @pytest.mark.cuda

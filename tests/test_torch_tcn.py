@@ -6,6 +6,8 @@ so here it is held against the Pallas kernel (interpret mode, as the JAX
 package's own tests run it) and against the flax block. Tolerance: float32,
 1e-4. The kernel itself is tested on the card in ``test_torch_cuda.py``.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +21,14 @@ from music_mixing_style_transfer_tpu.ops.pallas.tcn_block import fused_tcn_block
 from music_mixing_style_transfer_tpu_torch.config import TCNConfig
 from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
 from music_mixing_style_transfer_tpu_torch.models.weights import mixfxcloner_from_jax
+from music_mixing_style_transfer_tpu_torch.ops.cuda import build
+from music_mixing_style_transfer_tpu_torch.ops.cuda.k1_variants import VARIANTS, variant_source
 from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import (
+    block_epilogue,
+    dilated_conv,
     fused_block_applicable,
+    round_tf32,
+    split_tf32,
     tcn_block,
     tcn_block_reference,
 )
@@ -52,6 +60,54 @@ def test_reference_matches_pallas_kernel(rng):
     )
     got = tcn_block_reference(**_torch(a), d=8).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_split_tf32_is_exact_and_rounds_ties_away(rng):
+    w = torch.from_numpy(
+        (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))).astype(np.float32)
+    )
+    big, small = split_tf32(w)
+    assert (big.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert torch.equal(big + small, w)
+    assert (small.abs() <= big.abs() * 2.0**-11).all()
+    # 1 + 2^-11 is halfway between two tf32 values: ties go away from zero
+    tie = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-12], dtype=torch.float32)
+    assert round_tf32(tie).tolist() == [1 + 2.0**-10, -(1 + 2.0**-10), 1.0]
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_k1_variants_apply_to_the_kernel_source(name):
+    """Every edit of a timed variant still matches csrc/tcn_block.cu."""
+    with open(os.path.join(build.CSRC_DIR, "tcn_block.cu")) as f:
+        src = f.read()
+    assert (variant_source(src, VARIANTS[name]) == src) == (name == "shipped")
+    with pytest.raises(ValueError):
+        variant_source(src, [("no such line", "", 1)])
+
+
+@pytest.mark.parametrize("d", [8, 1024])  # 1024: T = 4096 < 7*d, edge taps all zero
+def test_3xtf32_matches_pallas_kernel_and_float64(rng, d):
+    """The kernel's float32 arithmetic, emulated: both operands split with
+    ``split_tf32`` (small parts rounded to tf32, as the kernel takes them),
+    small*big + big*small + big*big through ``F.conv1d`` (each product of
+    two tf32 values is exact in float32), then the same epilogue. Within
+    1e-4 of the Pallas kernel (interpret mode) and 1e-5 of max|float64|."""
+    a = _block_inputs(rng, 2, 4096)
+    ta = _torch(a)
+    xb, xs = split_tf32(ta["x"])
+    wb, ws = split_tf32(ta["w"])
+    xs, ws = round_tf32(xs), round_tf32(ws)
+    h = dilated_conv(xs, wb, d) + dilated_conv(xb, ws, d) + dilated_conv(xb, wb, d)
+    got = block_epilogue(h, ta["x"], *(ta[k] for k in "strb"), ta["wr"])
+    want = np.asarray(
+        fused_tcn_block(**{k: jnp.asarray(v) for k, v in a.items()}, d=d, interpret=True)
+    )
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    t64 = {k: v.double() for k, v in ta.items()}
+    y64 = block_epilogue(
+        dilated_conv(t64["x"], t64["w"], d), t64["x"], *(t64[k] for k in "strb"), t64["wr"]
+    )
+    assert (got.double() - y64).abs().max().item() <= 1e-5 * y64.abs().max().item()
 
 
 def _flax_block(rng, d, cond_dim=16):
