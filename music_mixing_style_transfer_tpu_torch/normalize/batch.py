@@ -89,9 +89,11 @@ def _stream_peaks_batch(
 ) -> torch.Tensor:
     """Peaks feature for every (channel, candidate) pair: ``[N, Gc]``.
 
-    Each time slab is broadcast to the ``N*Gc`` lanes, compressed with the
-    envelope carried across slabs (:class:`CompressorStream`), clipped, and
-    reduced to per-frame features; only the ``[N*Gc, F]`` frame arrays
+    Each time slab feeds the ``N*Gc`` lanes, lane ``n*Gc + g`` reading
+    channel n's row (the envelope kernel's ``rows``, so the slab is read once
+    and never copied per candidate), compressed with the envelope carried
+    across slabs (:class:`CompressorStream`), clipped, and reduced to
+    per-frame features; only the ``[N*Gc, F]`` frame arrays
     persist, so memory stays at ``O(lanes * slab_T)``. The unconditional
     clip equals the reference's rule "clip only when max|y| >= 1"."""
     dev = ch.device
@@ -106,11 +108,11 @@ def _stream_peaks_batch(
         ratios.reshape(-1),
         sample_rate,
     )
+    rows = torch.arange(N, device=dev).repeat_interleave(Gc)
     hfcs, fmaxs, fdbs = [], [], []
     for s0 in range(0, T_used, slab_T):
         xs = ch[:, s0 : min(s0 + slab_T, T_used)]
-        xg = xs[:, None, :].expand(N, Gc, xs.shape[-1]).reshape(N * Gc, -1)
-        h, fm, fd = frame_peak_features(stream.process(xg).clamp_(-1.0, 1.0))
+        h, fm, fd = frame_peak_features(stream.process(xs, rows=rows).clamp_(-1.0, 1.0))
         hfcs.append(h)
         fmaxs.append(fm)
         fdbs.append(fd)

@@ -116,10 +116,11 @@ class CompressorStream:
         )
         self._env = torch.zeros_like(self._th)
 
-    def process(self, x_slab: torch.Tensor) -> torch.Tensor:
-        """``[L, Ts] -> [L, Ts]`` compressed (no clip), carrying state."""
+    def process(self, x_slab: torch.Tensor, rows=None) -> torch.Tensor:
+        """``[L, Ts] -> [L, Ts]`` compressed (no clip), carrying state. With
+        ``rows`` ([L] int64), lane l reads row ``rows[l]`` of ``x_slab [R, Ts]``."""
         y, self._env = compressor_envelope(
             x_slab.to(torch.float32).contiguous(), self._th, self._ra, self._a_att,
-            self._a_rel, self._env,
+            self._a_rel, self._env, rows=rows,
         )
         return y

@@ -23,6 +23,7 @@ from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import (
 )
 
 C, K = 128, 15
+ENVELOPE_TOL = 1e-5  # K2 against a float64 run, over max|float64|
 
 
 @pytest.fixture
@@ -121,27 +122,45 @@ def _lanes(seed, L, T, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "L,T,cuts",
-    [(1024, 4096, None), (1000, 1000, None), (1, 1, None), (8, 1000, None), (7, 5000, [1, 1777, 4096])],
+    "L,T,cuts,shared",
+    [  # from 128 lanes on the kernel takes chunk 16, below chunk 64
+        (1024, 4096, None, False), (1000, 1000, None, False), (1, 1, None, False),
+        (8, 1000, None, False), (7, 5000, [1, 1777, 4096], False),
+        (1024, 70001, [65536], True),  # lanes reading 8 shared rows, two windows' ragged tail
+        (1000, 9001, None, True),  # 125 lanes a row: blocks of 8 lanes straddle two rows
+        (16, 30001, [20000], True),  # chunk 64, lanes reading shared rows, 15 windows
+    ],
 )
-def test_envelope_kernel_matches_plain_version(card, L, T, cuts):
-    """Ragged L and T, and slabs of unequal lengths with the envelope carried:
-    1e-5 of max|plain| (log10/exp forms differ; the recurrence contracts)."""
+def test_envelope_kernel_matches_plain_version(card, L, T, cuts, shared):
+    """Ragged L and T, slabs of unequal lengths with the envelope carried,
+    lanes reading shared rows, both chunk lengths: within 1e-5 of max|y| of
+    a float64 run of the plain version (y and env_out), and within the
+    float32 plain version's own error against float64 plus 1e-5 of it."""
     x, *p = _lanes(L * 7 + T, L, T, card)
-    want, env_want = envelope_reference(x, *p)
+    rows = None
+    if shared:
+        x = x[:8].contiguous()
+        rows = torch.arange(8, device=card).repeat_interleave(L // 8)
+    want, env_want = envelope_reference(x.double(), *(v.double() for v in p), rows=rows)
+    plain, _ = envelope_reference(x, *p, rows=rows)
     before = compressor_envelope.launches
     if cuts is None:
-        got, env = compressor_envelope(x, *p)
+        got, env = compressor_envelope(x, *p, rows=rows)
     else:
         parts, env = [], p[-1]
         for a, b in zip([0] + cuts, cuts + [T]):
-            y, env = compressor_envelope(x[:, a:b].contiguous(), *p[:-1], env)
+            y, env = compressor_envelope(x[:, a:b].contiguous(), *p[:-1], env, rows=rows)
             parts.append(y)
         got = torch.cat(parts, -1)
     torch.cuda.synchronize()
     assert compressor_envelope.launches == before + (1 if cuts is None else len(cuts) + 1)
-    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
-    assert (env - env_want).abs().max().item() <= 1e-5 * env_want.abs().max().item() + 1e-6
+    scale, env_scale = want.abs().max().item(), env_want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= ENVELOPE_TOL * scale
+    assert (env.double() - env_want).abs().max().item() <= ENVELOPE_TOL * env_scale + 1e-6
+    # implied by the float64 bar above (|got - plain| <= |got - want| +
+    # |plain - want|), kept as the figure that compares the two float32 walks
+    plain_err = (plain.double() - want).abs().max().item()
+    assert (got - plain).abs().max().item() <= plain_err + ENVELOPE_TOL * scale
 
 
 @pytest.mark.cuda
@@ -153,3 +172,5 @@ def test_envelope_wrapper_raises_on_what_the_kernel_does_not_take(card):
         compressor_envelope(x.double(), *p)
     with pytest.raises(ValueError, match="must be"):
         compressor_envelope(x, *p[:-1], p[-1].cpu())
+    with pytest.raises(ValueError, match="rows"):
+        compressor_envelope(x, *p, rows=torch.zeros(4, dtype=torch.int64))

@@ -1,8 +1,11 @@
 """PyTorch port: the compressor and the envelope wrapper's plain version vs
 the JAX package's ``compressor_process`` (its ``lax.scan`` path), on the
 CPU. Same tolerance as ``tests/test_pallas_envelope.py``: rtol 1e-4, atol
-1e-5 (float32 log10/pow forms and summation order differ; the recurrence is
-contractive, so errors do not grow with T)."""
+1e-5 (float32 log10/pow forms and summation order differ). And the plain
+model of the CUDA kernel's time-parallel algebra against the serial walk,
+both in float64."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,10 +13,13 @@ import torch
 
 from music_mixing_style_transfer_tpu.ops import compressor as jcomp
 from music_mixing_style_transfer_tpu_torch.ops import compressor as pcomp
+from music_mixing_style_transfer_tpu_torch.ops.cuda import build
 from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
     compressor_envelope,
+    envelope_chunked_reference,
     envelope_reference,
 )
+from music_mixing_style_transfer_tpu_torch.ops.cuda.k2_variants import VARIANTS, variant_source
 
 torch.set_num_threads(2)
 SR = 44100
@@ -138,3 +144,88 @@ def test_envelope_wrapper_rejects_what_the_kernel_does_not_take():
     before = compressor_envelope.launches
     compressor_envelope(torch.zeros(2, 8), *lanes)  # the CPU takes the plain version
     assert compressor_envelope.launches == before
+
+
+def _mixed_lanes(rng, L, T):
+    """float64 lanes of every kind: compressors whose attack is faster than
+    the release (the max branch) and slower (the min branch), an expander,
+    an identity lane; a nonzero carried envelope."""
+    x = _signal(rng, L, T).astype(np.float64)
+    ratio = np.resize([4.0, 3.0, 0.25, 1.0, 20.0, 0.5], L)
+    th = np.resize([-25.0, -20.0, -35.0, -30.0, -15.0, -40.0], L)
+    att = np.resize([10.0, 400.0, 5.0, 7.5, 1.0, 300.0], L)
+    rel = np.resize([180.0, 20.0, 666.0, 400.0, 50.0, 30.0], L)
+    a_att, a_rel = np.exp(-1.0 / (0.001 * SR * att)), np.exp(-1.0 / (0.001 * SR * rel))
+    env0 = rng.uniform(-5.0, 15.0, L)
+    return [torch.from_numpy(v) for v in (x, th, ratio, a_att, a_rel, env0)]
+
+
+def _close(got, want, rtol):
+    return (got - want).abs().max().item() <= rtol * want.abs().max().item()
+
+
+# the kernel's two chunks (16 from 128 lanes on, 64 below) and two more: the
+# algebra holds for any chunk
+@pytest.mark.parametrize("chunk", [16, 64, 32, 128])
+@pytest.mark.parametrize("T", [1, 1000, 2 * 64 * 32 + 5])
+def test_chunked_model_equals_the_plain_version_in_float64(rng, chunk, T):
+    """The kernel's algebra (chunk summaries, carry scan, re-walk) against
+    the serial walk, both in float64: equal to 1e-9 of max|y|, for every kind
+    of lane, T = 1, T not a multiple of the chunk or of a window."""
+    x, *p = _mixed_lanes(rng, 6, T)
+    want, env_want = envelope_reference(x, *p)
+    got, env = envelope_chunked_reference(x, *p, chunk=chunk)
+    assert _close(got, want, 1e-9) and _close(env, env_want, 1e-9)
+
+
+def test_chunked_model_carries_slabs_and_reads_rows(rng):
+    """Slabs with the carry equal one pass; lanes reading shared rows equal
+    the same rows copied out; float64, 1e-9 of max|y|."""
+    T = 3000
+    x, *p = _mixed_lanes(rng, 3, T)
+    rows = torch.tensor([0, 0, 1, 2, 2, 1])
+    p = [v[rows] for v in p]
+    want, env_want = envelope_reference(x[rows], *p)
+    parts, env = [], p[-1]
+    for a, b in zip([0, 1, 1777], [1, 1777, T]):
+        y, env = envelope_chunked_reference(x[:, a:b], *p[:-1], env, chunk=16, rows=rows)
+        parts.append(y)
+    assert _close(torch.cat(parts, -1), want, 1e-9) and _close(env, env_want, 1e-9)
+
+
+def test_rows_match_jax_on_the_expanded_signal(rng):
+    """``rows`` against JAX's compressor on x expanded to one row a lane (as
+    the normalizer's sweep used to feed it), and the wrapper's CPU path."""
+    L, T = 6, 4000
+    x = _signal(rng, 2, T)
+    rows = np.asarray([0, 0, 0, 1, 1, 1])
+    th = np.asarray([-20.0, -12.0, -30.0, -25.0, -10.0, -18.0], np.float32)
+    ratio = np.asarray([4.0, 0.5, 1.0, 6.0, 2.0, 0.25], np.float32)
+    att = np.asarray([10.0, 5.0, 300.0, 7.5, 1.0, 15.0], np.float32)
+    rel = np.asarray([180.0, 60.0, 30.0, 400.0, 50.0, 666.0], np.float32)
+    want = _jax(x[rows], th, att, rel, ratio)
+    a_att, a_rel = pcomp.alphas(torch.from_numpy(att), torch.from_numpy(rel), SR)
+    args = (torch.from_numpy(x), torch.from_numpy(th), torch.from_numpy(ratio), a_att, a_rel,
+            torch.zeros(L))
+    got, _ = envelope_reference(*args, rows=torch.from_numpy(rows))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    wrapped, _ = compressor_envelope(*args, rows=torch.from_numpy(rows))
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+
+
+def test_rows_are_checked():
+    lanes = [torch.zeros(2) for _ in range(5)]
+    with pytest.raises(ValueError, match="rows"):
+        compressor_envelope(torch.zeros(1, 8), *lanes, rows=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(IndexError):  # on the CPU a row outside x raises
+        compressor_envelope(torch.zeros(1, 8), *lanes, rows=torch.tensor([0, 1]))
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_k2_variants_apply_to_the_kernel_source(name):
+    """Every edit of a timed variant still matches csrc/envelope.cu."""
+    with open(os.path.join(build.CSRC_DIR, "envelope.cu")) as f:
+        src = f.read()
+    assert (variant_source(src, VARIANTS[name]) == src) == (name == "shipped")
+    with pytest.raises(ValueError):
+        variant_source(src, [("no such line", "", 1)])
