@@ -24,8 +24,10 @@ non-zero:
    normalizer's candidate grids, ragged L and T, slabs carried, lanes that
    read shared rows, and the main path's own launches: the sweep's three
    slabs [1024, 262144], [1024, 262144], [1024, 131072] reading 8 rows with
-   the carry, and the final [8, 655360]; kernel times at both shapes, the
-   plain version's at [1024, 262144].
+   the carry, and the final [8, 655360]; and the per-channel normalizer's
+   launches: 96 candidates reading one channel [96, 655360] and the chosen
+   one [1, 655360]; kernel times at those four shapes, the plain version's
+   at [1024, 262144].
 4. main path at full width: ``MixingStyleTransfer.transfer_song_pcm`` with
    the default FXencoder and MixFXcloner (random weights from a seed): with
    ``normalize_input=False`` in float32, bfloat16 and interpolation mode,
@@ -38,9 +40,24 @@ non-zero:
 5. normalizer, card vs CPU: ``normalize_device`` on the main path's
    2^19-sample song on the card (K2, cuFFT) and on the CPU (plain
    versions): the same compression choices, stems within 1e-4.
-6. CLI: ``python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer``
+6. per-channel normalizer: ``AudioEffectsNormalizer.normalize_audio`` of the
+   main path's 4 stems (2^19 samples, default config) on the card, timed,
+   with its K2 launches, held against the card's batched normalizer within
+   the JAX package's bound between its two paths (NRMSE 0.05); and one stem
+   of 2^17 samples on the card against the CPU (same choices, 1e-4).
+7. serve: the port's HTTP server on 127.0.0.1 (any free port) at full width
+   in bfloat16 with FX normalization: ``/warmup`` at 2^19 samples,
+   ``/health``, ``/embed``, a timed ``/transfer`` of a song directory; three
+   queued ``/transfer``s served in FIFO order, one more refused with 429,
+   ``/warmup`` while busy refused with 409; the written mixture
+   byte-equal to the same engine's in-process ``run_directory``.
+8. infer_prof: ``tools/infer_prof.py``'s phase split of the main
+   configuration, normalized, in float32 and bfloat16 (one line each).
+9. CLI: ``python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer``
    on a synthetic song directory, without and with FX normalization.
-7. the ``kernels`` line, then the last line
+10. the ``kernels`` line (launches of the main path, and per path under
+   ``launches_by_path``: each path runs with the counts set to 0 just
+   before it and read just after), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card and the package beside it: without either it exits
@@ -86,6 +103,9 @@ ENVELOPE_TOL = 1e-5
 NORMALIZER_TOL = 1e-4  # normalize_device, card vs CPU, over max|cpu|
 SWEEP_SHAPE = (1024, 2**18)        # one slab of the normalizer's candidate sweep
 FINAL_SHAPE = (8, T_SEG + 2**17)   # its final compression: 8 channels, fft-padded
+CHANNEL_SWEEP_SHAPE = (96, T_SEG + 2**17)  # per-channel matching: 96 candidates of one channel
+CHANNEL_FINAL_SHAPE = (1, T_SEG + 2**17)   # and the chosen candidate
+PATH_NRMSE = 0.05      # per-channel vs batched normalizer, the JAX package's bound
 FEATURES = os.path.join(
     ROOT, "music_mixing_style_transfer_tpu_torch", "weights",
     "musdb18_fxfeatures_eqcompimagegain.npy",
@@ -95,19 +115,6 @@ FEATURES = os.path.join(
 def emit(phase: str, t0: float, **fields) -> None:
     rec = {"phase": phase, "seconds": round(time.perf_counter() - t0, 3), **fields}
     print(json.dumps(rec), flush=True)
-
-
-@contextlib.contextmanager
-def full_float32():
-    """TF32 off in cuDNN convolutions and matmuls, for the comparisons."""
-    import torch
-
-    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def cuda_time_ms(fn, reps: int, warm_up: bool = True) -> float:
@@ -393,6 +400,34 @@ def envelope_lanes(L: int, T: int, seed: int, shared: bool = False):
     return out + [torch.from_numpy(rows).to(dev) if shared else None]
 
 
+def channel_lanes(L: int, T: int, seed: int, shared: bool = False):
+    """One channel ``[1, T]`` of synthetic music peak-normalized to -10 dB,
+    as ``comp_match`` feeds it, and L lanes that all read it (``rows`` all
+    zeros, as ``_grid_compress`` passes them): the first L candidates of the
+    downward grid of ratio 4 (one lane: the candidate at threshold -20 dB,
+    since the first, at -10 dB, leaves a -10 dB peak untouched) with a
+    ratio-4 stem's attack and release. Returns the same list as
+    :func:`envelope_lanes`."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import NormalizationConfig
+    from music_mixing_style_transfer_tpu_torch.normalize.matching import _comp_grid
+
+    rng = np.random.default_rng(seed)
+    cfg = NormalizationConfig()
+    ch = synthetic_stems(rng, 1, T)[0, :1].astype(np.float32) / 32768.0
+    ch *= 10 ** (-10 / 20) / max(float(np.abs(ch).max()), 1e-30)
+    R, Th = _comp_grid(4.0, cfg.comp_min_th, cfg.comp_max_ratio, expander=False)
+    if L == 1:
+        R, Th = R[Th == -20.0], Th[Th == -20.0]
+    att, rel = cfg.comp_settings["vocals"][:2]
+    a = [np.full(L, np.exp(-1.0 / (0.001 * SR * v))) for v in (att, rel)]
+    dev = "cuda"
+    out = [torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+           for v in (ch, Th[:L], R[:L], a[0], a[1], np.zeros(L))]
+    return out + [torch.zeros(L, dtype=torch.int64, device=dev)]
+
+
 def phase_envelope_vs_plain():
     """K2 against a float64 run of its plain version, and its times at the
     main path's two shapes. Returns the summary for the kernels line."""
@@ -407,8 +442,8 @@ def phase_envelope_vs_plain():
 
     cases = []
 
-    def check(name, L, T, cuts=None, shared=False):
-        x, *p, rows = envelope_lanes(L, T, SEED + L + T, shared)
+    def check(name, L, T, cuts=None, shared=False, make=envelope_lanes):
+        x, *p, rows = make(L, T, SEED + L + T, shared)
         want, env_want = envelope_reference(x.double(), *(v.double() for v in p), rows=rows)
         t_plain = time.perf_counter()
         plain, env_plain = envelope_reference(x, *p, rows=rows)
@@ -466,10 +501,18 @@ def phase_envelope_vs_plain():
     L, T = SWEEP_SHAPE
     check("main_sweep_slabs", L, FINAL_SHAPE[1], cuts=[T, 2 * T], shared=True)
     check("main_final", *FINAL_SHAPE)
+    # the per-channel normalizer's launches: 96 candidates of one channel
+    # (chunk 64, below 128 lanes) and the chosen candidate alone
+    check("channel_sweep", *CHANNEL_SWEEP_SHAPE, make=channel_lanes)
+    check("channel_final", *CHANNEL_FINAL_SHAPE, make=channel_lanes)
 
     times = {}
-    for name, (L, T) in (("sweep", SWEEP_SHAPE), ("final", FINAL_SHAPE)):
-        x, *p, rows = envelope_lanes(L, T, SEED + 1, shared=name == "sweep")
+    for name, (L, T), make in (
+        ("sweep", SWEEP_SHAPE, envelope_lanes), ("final", FINAL_SHAPE, envelope_lanes),
+        ("channel_sweep", CHANNEL_SWEEP_SHAPE, channel_lanes),
+        ("channel_final", CHANNEL_FINAL_SHAPE, channel_lanes),
+    ):
+        x, *p, rows = make(L, T, SEED + 1, shared=name == "sweep")
         ms = cuda_time_ms(lambda: compressor_envelope(x, *p, rows=rows), 5)
         times[name] = {
             "shape": [L, T], "rows": None if rows is None else int(x.shape[0]),
@@ -501,6 +544,7 @@ def phase_main_path():
     from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
     from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
     from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
 
     rng = np.random.default_rng(SEED)
     S = 4
@@ -644,6 +688,240 @@ def phase_normalizer_card_vs_cpu():
         raise AssertionError("normalize_device on the card disagrees with the CPU")
 
 
+@contextlib.contextmanager
+def recorded_choices():
+    """The (ratio, threshold) each per-channel compression matching
+    compresses with, in call order (``matching._grid_one`` wrapped)."""
+    from music_mixing_style_transfer_tpu_torch.normalize import matching
+
+    picks, orig = [], matching._grid_one
+
+    def record(x, r, t, *a):
+        picks.append((float(r), float(t)))
+        return orig(x, r, t, *a)
+
+    matching._grid_one = record
+    try:
+        yield picks
+    finally:
+        matching._grid_one = orig
+
+
+def phase_normalizer_per_channel():
+    """``normalize_audio`` stem by stem on the card against the card's
+    batched path, and one shorter stem against the CPU. Returns the K2
+    launches of the per-channel run."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+
+    card = AudioEffectsNormalizer(FEATURES)  # default NormalizationConfig
+    insts = list(card.cfg.stems)
+    song = synthetic_stems(np.random.default_rng(SEED + 5), len(insts), T_SEG) / 32768.0
+    stems = {inst: song[s].astype(np.float32) for s, inst in enumerate(insts)}
+    t_b = time.perf_counter()
+    batched = card.normalize_stems(stems)
+    batched_s = time.perf_counter() - t_b
+    choice = card.batched().last_compression
+
+    tcn_block.launches = compressor_envelope.launches = 0
+    per_stem_s, nrmse = {}, {}
+    with recorded_choices() as picks:
+        for inst in insts:
+            t_s = time.perf_counter()
+            y = card.normalize_audio(stems[inst], inst)  # ends in the download
+            per_stem_s[inst] = time.perf_counter() - t_s
+            ref = batched[inst]
+            nrmse[inst] = float(np.sqrt(np.mean((y - ref) ** 2)) / (np.sqrt(np.mean(ref**2)) + 1e-12))
+            if not (y.shape == ref.shape and np.isfinite(y).all()):
+                raise AssertionError(f"normalize_audio({inst}) gave {y.shape}, non-finite values")
+    n_env, n_k1 = compressor_envelope.launches, tcn_block.launches
+    active = [(float(r), float(t)) for r, t, a in
+              zip(choice["ratio"], choice["threshold"], choice["active"]) if a]
+
+    # one stem of 2^17 samples, card against CPU (the CPU walks the plain
+    # envelope in a Python loop over time)
+    cpu = AudioEffectsNormalizer(FEATURES, card.cfg, device="cpu")
+    short = stems[insts[0]][:, : 2**17]
+    out, short_picks, short_s = {}, {}, {}
+    for name, norm in (("card", card), ("cpu", cpu)):
+        with recorded_choices() as pk:
+            t_s = time.perf_counter()
+            out[name] = norm.normalize_audio(short, insts[0])
+            short_s[name] = time.perf_counter() - t_s
+        short_picks[name] = pk
+    err = float(np.abs(out["card"] - out["cpu"]).max())
+    scale = float(np.abs(out["cpu"]).max())
+    emit(
+        "normalizer_per_channel", t0, stems=insts, song_samples=T_SEG,
+        per_channel_s=sum(per_stem_s.values()), per_stem_s=per_stem_s, batched_s=batched_s,
+        compressor_envelope_launches=n_env, tcn_block_launches=n_k1,
+        per_channel_choices=picks, batched_active_choices=active,
+        same_choices_as_batched=picks == active, nrmse_vs_batched=nrmse, nrmse_tol=PATH_NRMSE,
+        short={"stem": insts[0], "samples": int(short.shape[-1]), "card_s": short_s["card"],
+               "cpu_s": short_s["cpu"], "choices": short_picks, "max_abs_err": err,
+               "max_abs_ref": scale, "tol": NORMALIZER_TOL},
+    )
+    if not (n_env > 0 and n_k1 == 0 and all(v < PATH_NRMSE for v in nrmse.values())
+            and short_picks["card"] == short_picks["cpu"] and err <= NORMALIZER_TOL * scale
+            and np.isfinite(out["card"]).all()):
+        raise AssertionError("the per-channel normalizer failed its checks")
+    return {"compressor_envelope": n_env, "tcn_block": n_k1}
+
+
+def _http(url: str, payload=None):
+    """GET (no payload) or POST JSON; returns (status, headers, body dict),
+    HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def phase_serve():
+    """The port's server at full width, bf16 and normalized, on 127.0.0.1.
+    Returns the kernels' launches over its requests."""
+    t0 = time.perf_counter()
+    import threading
+
+    from music_mixing_style_transfer_tpu_torch.config import InferenceConfig
+    from music_mixing_style_transfer_tpu_torch.data.wavio import write_wav
+    from music_mixing_style_transfer_tpu_torch.infer.pipeline import (
+        MixingStyleTransfer,
+        StyleTransferEngine,
+    )
+    from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.serve import StyleTransferService, serve
+
+    eng = StyleTransferEngine(dtype="bfloat16", seed=SEED)  # serve's default dtype
+    norm = AudioEffectsNormalizer(FEATURES)
+    cfg = InferenceConfig(do_not_separate=True, normalize_input=True, dtype="bfloat16")
+    service = StyleTransferService(eng, cfg, norm, max_queue=3)
+    httpd = serve(service, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rec = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.default_rng(SEED + 7)
+            for name in ("input", "reference"):
+                for inst, x in zip(cfg.instruments, synthetic_stems(rng, 4, T_SEG)):
+                    write_wav(os.path.join(tmp, "songs", "s0", "separated", name, inst + ".wav"),
+                              x.T, SR)
+            target = os.path.join(tmp, "songs") + "/"
+            tcn_block.launches = compressor_envelope.launches = 0
+            code, _, rec["warmup"] = _http(url + "/warmup", {"seconds": T_SEG / SR})
+            rec["warmup_status"] = code
+            rec["health_status"], _, rec["health"] = _http(url + "/health")
+            t_e = time.perf_counter()
+            code, _, emb = _http(url + "/embed", {
+                "wav": os.path.join(tmp, "songs", "s0", "separated", "reference", "drums.wav")})
+            rec["embed"] = {"status": code, "s": time.perf_counter() - t_e,
+                            "dim": len(emb.get("embedding", [])),
+                            "finite": bool(np.isfinite(emb.get("embedding", [np.nan])).all())}
+            t_t = time.perf_counter()
+            code, _, first = _http(url + "/transfer", {"target_dir": target,
+                                                       "output_dir": os.path.join(tmp, "out0") + "/"})
+            rec["transfer"] = {"status": code, "s": time.perf_counter() - t_t,
+                               "audio_s": T_SEG / SR, "written": len(first.get("written", []))}
+
+            # FIFO: hold the card's slot, queue three transfers one by one,
+            # then a fourth (429) and a warmup (409), then let them run
+            service.admission.acquire()
+            done, threads = [], []
+            try:
+                for i in range(3):
+                    def run(i=i):
+                        code, _, body = _http(url + "/transfer", {
+                            "target_dir": target, "output_dir": os.path.join(tmp, f"out{i + 1}") + "/"})
+                        done.append((i, code, len(body.get("written", []))))
+
+                    threads.append(threading.Thread(target=run))
+                    threads[-1].start()
+                    for _ in range(2000):
+                        if service.admission.snapshot()["queue_depth"] == i + 1:
+                            break
+                        time.sleep(0.005)
+                rec["queued_depth"] = service.admission.snapshot()["queue_depth"]
+                code, headers, _ = _http(url + "/transfer", {"target_dir": target})
+                rec["overflow"] = {"status": code, "retry_after": headers.get("Retry-After")}
+                rec["warmup_while_busy_status"] = _http(url + "/warmup", {"seconds": 0.5})[0]
+            finally:
+                service.admission.release()
+            for th in threads:
+                th.join(timeout=600)
+            rec["fifo_order"] = [i for i, _, _ in done]
+            rec["fifo_status"] = [c for _, c, _ in done]
+            launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+
+            # the same engine and normalizer in-process
+            inproc = MixingStyleTransfer(eng, cfg, normalizer=norm).run_directory(
+                target, os.path.join(tmp, "inproc") + "/")
+            served = first.get("written", [None])[0]
+            same = False
+            if served and inproc:
+                with open(served, "rb") as a, open(inproc[0], "rb") as b:
+                    same = a.read() == b.read()
+            rec["byte_equal_to_run_directory"] = same
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    emit("serve", t0, dtype="bfloat16", normalize_input=True, max_queue=3, **rec,
+         tcn_block_launches=launches["tcn_block"],
+         compressor_envelope_launches=launches["compressor_envelope"])
+    ok = (
+        rec["warmup_status"] == 200 and rec["health_status"] == 200
+        and rec["health"].get("backend") == "cuda" and rec["embed"]["status"] == 200
+        and rec["embed"]["dim"] == 2048 and rec["embed"]["finite"]
+        and rec["transfer"]["status"] == 200 and rec["transfer"]["written"] == 1
+        and rec["queued_depth"] == 3 and rec["overflow"] == {"status": 429, "retry_after": "30"}
+        and rec["warmup_while_busy_status"] == 409 and rec["fifo_order"] == [0, 1, 2]
+        and rec["fifo_status"] == [200] * 3 and rec["byte_equal_to_run_directory"]
+        and all(n > 0 for n in launches.values())
+    )
+    if not ok:
+        raise AssertionError("the server failed its checks")
+    return launches
+
+
+def phase_infer_prof():
+    """``tools/infer_prof.py`` at the main configuration, normalized, in
+    float32 and bfloat16. Returns the kernels' launches over both runs."""
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.tools import infer_prof
+
+    keys = ("norm_loudness_s", "norm_eq_s", "norm_compression_s", "norm_imager_s", "upload_s",
+            "normalize_s", "embed_s", "convert_s", "download_s", "total_s", "rtf")
+    launches = {"tcn_block": 0, "compressor_envelope": 0}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        args = infer_prof.build_parser().parse_args(["--seconds", repr(T_SEG / SR), "--dtype", dtype])
+        tcn_block.launches = compressor_envelope.launches = 0
+        out = infer_prof.run(args)
+        n = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+        emit("infer_prof", t0, audio_s=out.pop("seconds"), **out, tcn_block_launches=n["tcn_block"],
+             compressor_envelope_launches=n["compressor_envelope"])
+        if not (all(k in out and np.isfinite(out[k]) for k in keys) and all(v > 0 for v in n.values())):
+            raise AssertionError(f"infer_prof ({dtype}) failed its checks: {out}")
+        for k in launches:
+            launches[k] += n[k]
+    return launches
+
+
 def phase_cli():
     t0 = time.perf_counter()
     from music_mixing_style_transfer_tpu_torch.data.wavio import read_wav_stereo_ct, write_wav
@@ -692,7 +970,8 @@ def summary(cases) -> dict:
     }
 
 
-def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float):
+def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float,
+                       by_path: dict):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -718,6 +997,8 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "source": "music_mixing_style_transfer_tpu_torch/csrc/tcn_block.cu",
         "replaces": "music_mixing_style_transfer_tpu/ops/pallas/tcn_block.py:76",
         "launches": launches,
+        "launches_by_path": {"main_path": launches,
+                             **{p: n["tcn_block"] for p, n in by_path.items()}},
         "max_abs_err": max(f32["max_abs_err"], interp["float32"]["max_abs_err"]),
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],
@@ -734,13 +1015,16 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "bfloat16": main[torch.bfloat16],
         "interpolation": {"shape": [INTERP_B, INTERP_T, 128], **interp},
     }
-    sweep, final = env["times"]["sweep"], env["times"]["final"]
+    times = env["times"]
+    sweep, final = times["sweep"], times["final"]
     envelope = {
         "name": "compressor_envelope",
         "route": "cuda",
         "source": "music_mixing_style_transfer_tpu_torch/csrc/envelope.cu",
         "replaces": "music_mixing_style_transfer_tpu/ops/pallas/envelope.py:105",
         "launches": env_launches,
+        "launches_by_path": {"main_path": env_launches,
+                             **{p: n["compressor_envelope"] for p, n in by_path.items()}},
         "max_abs_err": env["max_abs_err"],
         "ms": sweep["ms"],
         "plain_ms": env["plain_ms"],
@@ -754,6 +1038,7 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "dtype": "float32",
         "max_rel_err_float64": env["max_rel_err_float64"],
         "final": final,
+        "per_channel": {"sweep": times["channel_sweep"], "final": times["channel_final"]},
     }
     emit("kernels_line", t0, cases=[c for cases in main_cases.values() for c in cases],
          total_s=round(time.perf_counter() - t_all, 3))
@@ -768,7 +1053,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import music_mixing_style_transfer_tpu_torch  # noqa: F401  (fails without the package)
+    # fails without the package; TF32 off in cuDNN and matmuls for the comparisons
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
 
     t_all = time.perf_counter()
     smi = phase_device_and_build()
@@ -777,9 +1063,14 @@ def main() -> int:
     env = phase_envelope_vs_plain()
     launches, env_launches = phase_main_path()  # PyTorch's default flags, as the CLI runs
     phase_normalizer_card_vs_cpu()
+    by_path = {
+        "normalizer_per_channel": phase_normalizer_per_channel(),
+        "serve": phase_serve(),
+        "infer_prof": phase_infer_prof(),
+    }
     phase_cli()
     with full_float32():
-        kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all)
+        kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -8,7 +8,10 @@ stdlib only, never JAX or the JAX package.
   names follow the published reference state dicts.
 - ``ops.cuda``: hand-written CUDA kernels for Hopper (``csrc/``), each with
   its plain PyTorch version beside it.
-- ``infer``: the whole-song style-transfer pipeline and its CLI.
+- ``infer``: the whole-song style-transfer pipeline, its CLI and the
+  feature-extraction CLI; ``serve``: the HTTP server.
+- ``normalize``: FX normalization, batched and per channel.
+- ``metrics`` and ``tools``: evaluation and the inference profiler.
 - ``data``: WAV I/O and song segmentation (numpy).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.

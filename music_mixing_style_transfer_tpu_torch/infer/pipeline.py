@@ -41,7 +41,7 @@ from ..data.wavio import read_wav_stereo_ct, read_wav_stereo_ct_i16, write_wav
 from ..models import FXencoder, MixFXcloner
 from ..models.checkpoints import load_model_state
 from ..models.fast_init import fast_init
-from ..utils.device import resolve_device
+from ..utils.device import full_float32, resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -78,13 +78,8 @@ def _engine_forward(fn):
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            with torch.inference_mode():
-                return fn(*args, **kwargs)
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        with full_float32(), torch.inference_mode():
+            return fn(*args, **kwargs)
 
     return wrapped
 
@@ -243,9 +238,15 @@ class MixingStyleTransfer:
         cfg = self.cfg
         if self.normalizer is not None and cfg.normalize_input:
             t0 = time.perf_counter()
-            normalized = self.normalizer.normalize_stems(
-                {i: input_stems[i] for i in cfg.instruments}
-            )
+            if hasattr(self.normalizer, "normalize_stems"):
+                normalized = self.normalizer.normalize_stems(
+                    {i: input_stems[i] for i in cfg.instruments}
+                )
+            else:  # a per-channel normalizer (normalize_audio only)
+                normalized = {
+                    inst: self.normalizer.normalize_audio(x, src=inst)
+                    for inst, x in input_stems.items()
+                }
             input_stems = {i: np.clip(v, -1.0, 1.0) for i, v in normalized.items()}
             log.info("fx-normalization: %.1fs", time.perf_counter() - t0)
         if reference_stems_b is None:

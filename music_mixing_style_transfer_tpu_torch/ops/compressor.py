@@ -70,32 +70,38 @@ def compressor_process(
     release_ms,
     ratio,
     sample_rate: int = 44100,
+    rows=None,
 ) -> torch.Tensor:
     """Full compressor over the last axis of ``x [..., T]`` (float32).
 
     Parameters are scalars or arrays broadcastable to ``x.shape[:-1]`` (one
-    value per lane)."""
-    batch_shape, T = x.shape[:-1], x.shape[-1]
+    value per lane). With ``rows`` ([L] int64 on x's device), ``x`` is
+    ``[R, T]``, lane l reads row ``rows[l]`` (read once, never copied per
+    lane), the parameters broadcast to ``[L]`` and the result is ``[L, T]``."""
+    T = x.shape[-1]
+    batch_shape = x.shape[:-1] if rows is None else rows.shape
     dev = x.device
     a_att, a_rel = alphas(attack_ms, release_ms, sample_rate, dev)
     lanes = [_lanes(p, batch_shape, dev) for p in (threshold, ratio, a_att, a_rel)]
     y, _ = compressor_envelope(
-        x.reshape(-1, T).contiguous(), *lanes, torch.zeros_like(lanes[0])
+        x.reshape(-1, T).contiguous(), *lanes, torch.zeros_like(lanes[0]), rows=rows
     )
-    return y.reshape(x.shape)
+    return y.reshape(*batch_shape, T)
 
 
 def compress_and_clip(
-    x2: torch.Tensor,  # [L, T]
+    x2: torch.Tensor,  # [L, T], or [R, T] with rows
     thresholds,        # [L]
     attacks,           # [L] ms
     releases,          # [L] ms
     ratios,            # [L]
     sample_rate: int = 44100,
+    rows=None,
 ) -> torch.Tensor:
     """Per-lane compressor + the reference's clip rule (clip only if the
-    output exceeds full scale, ``utils_data_normalization.py:352-355``)."""
-    y = compressor_process(x2, thresholds, attacks, releases, ratios, sample_rate)
+    output exceeds full scale, ``utils_data_normalization.py:352-355``).
+    ``rows`` as in :func:`compressor_process`."""
+    y = compressor_process(x2, thresholds, attacks, releases, ratios, sample_rate, rows=rows)
     return torch.where(y.abs().amax(-1, keepdim=True) >= 1.0, y.clamp(-1.0, 1.0), y)
 
 

@@ -11,7 +11,8 @@ that has drifted fails here instead of measuring something else.
 For each variant: ptxas registers and spills; the error against a float64
 run of the plain version at [1024, 65536] (8 shared rows) and [8, 65536],
 over max|float64|; per-launch ms at the main path's two shapes, the sweep's
-[1024, 262144] slab reading 8 rows and the final [8, 655360], each at the
+[1024, 262144] slab reading 8 rows and the final [8, 655360], and at the
+per-channel normalizer's sweep, [96, 655360] reading one row, each at the
 chunk the variant's source takes for its lane count (the chunk variants
 change that choice). The variants are timed in the order given, then in
 reverse. ``traced`` is the shipped kernel with a %globaltimer stamp per warp at the
@@ -150,16 +151,17 @@ def _using(so: str):
         k2._library = saved
 
 
-def _lanes(L: int, T: int, seed: int, shared: bool):
-    """Noise under slow envelopes on 8 channels at -10 dB peak, each over L/8
-    lanes with the compressor settings of the normalizer's stems (ratio 4 to
-    20 and expanders, every fourth lane), one lane whose attack is slower
-    than its release; x [8, T] with ``rows`` when ``shared``, else [L, T]."""
+def _lanes(L: int, T: int, seed: int, shared: bool, n_rows: int = 8):
+    """Noise under slow envelopes on ``n_rows`` channels at -10 dB peak, each
+    over L/n_rows lanes with the compressor settings of the normalizer's
+    stems (ratio 4 to 20 and expanders, every fourth lane), one lane whose
+    attack is slower than its release; x [n_rows, T] with ``rows`` when
+    ``shared``, else [L, T]."""
     rng = np.random.default_rng(seed)
-    env = np.abs(np.sin(np.linspace(0, 1, T)[None, :] * rng.uniform(3, 30, (8, 1))))
-    chans = rng.standard_normal((8, T)) * (0.2 + env)
+    env = np.abs(np.sin(np.linspace(0, 1, T)[None, :] * rng.uniform(3, 30, (n_rows, 1))))
+    chans = rng.standard_normal((n_rows, T)) * (0.2 + env)
     chans *= 10 ** (-10 / 20) / np.abs(chans).max(-1, keepdims=True)
-    rows = np.arange(L) * 8 // L
+    rows = np.arange(L) * n_rows // L
     ratio = np.where(np.arange(L) % 4 == 3, 0.5, 4.0 + np.arange(L) % 17)
     th = -10.0 - 40.0 * rng.uniform(size=L)
     settings = np.asarray([(7.5, 400.0), (10.0, 180.0), (10.0, 500.0), (15.0, 666.0)])
@@ -231,7 +233,8 @@ def main() -> int:
             args, rows = _lanes(L, 2**16, 1, shared)
             want = k2.envelope_reference(*(a.double() for a in args), rows=rows)[0]
             acc[name] = (args, rows, want)
-        timed = {"sweep": _lanes(1024, 2**18, 2, True), "final": _lanes(8, 655360, 3, False)}
+        timed = {"sweep": _lanes(1024, 2**18, 2, True), "final": _lanes(8, 655360, 3, False),
+                 "channel_sweep": _lanes(96, 655360, 4, True, n_rows=1)}
         order = list(VARIANTS)
         for n_pass, names in enumerate((order, order[::-1])):
             for name in names:

@@ -15,32 +15,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .biquad import biquad_cascade_fft, rbj_coeffs
+from .biquad import biquad_apply, biquad_cascade_fft, rbj_coeffs, rbj_poles
 from .stft import frame
 
 K_WEIGHT_SPECTRAL_MIN = 65536
-K_WEIGHT_SHORT_NOT_PORTED = (
-    "k_weight below 65536 samples runs the biquad recurrence, which is not "
-    "yet ported to the PyTorch package (ROADMAP: biquad recurrences, with the "
-    "FX engine)"
-)
 
 
 def k_weighting_coeffs(rate: float):
-    """(high_shelf, high_pass) biquad coefficients ``[5]`` for the rate."""
+    """(high_shelf, high_pass) biquad ``(coeffs [5], poles [2])`` for the rate."""
+    shelf_args = ("high_shelf", 4.0, 1.0 / np.sqrt(2.0), 1500.0, rate)
+    hpf_args = ("high_pass", 0.0, 0.5, 38.0, rate)
     return (
-        rbj_coeffs("high_shelf", 4.0, 1.0 / np.sqrt(2.0), 1500.0, rate),
-        rbj_coeffs("high_pass", 0.0, 0.5, 38.0, rate),
+        (rbj_coeffs(*shelf_args), rbj_poles(*shelf_args)),
+        (rbj_coeffs(*hpf_args), rbj_poles(*hpf_args)),
     )
 
 
 def k_weight(x: torch.Tensor, rate: float) -> torch.Tensor:
     """The two-stage K pre-filter over the last axis. Signals of 65536
-    samples or more take the spectral cascade (one FFT round trip), as in the
-    JAX package; shorter ones need the recurrence, not yet ported."""
-    if x.shape[-1] < K_WEIGHT_SPECTRAL_MIN:
-        raise NotImplementedError(K_WEIGHT_SHORT_NOT_PORTED)
-    return biquad_cascade_fft(x, torch.stack(k_weighting_coeffs(rate)))
+    samples or more take the spectral cascade (one FFT round trip), shorter
+    ones the recurrence with the analytic poles (exact transients), as in
+    the JAX package."""
+    (sc, sp), (hc, hp) = k_weighting_coeffs(rate)
+    if x.shape[-1] >= K_WEIGHT_SPECTRAL_MIN:
+        return biquad_cascade_fft(x, torch.stack([sc, hc]))
+    return biquad_apply(biquad_apply(x, sc, poles=sp), hc, poles=hp)
 
 
 def integrated_loudness(x: torch.Tensor, rate: int = 44100) -> torch.Tensor:

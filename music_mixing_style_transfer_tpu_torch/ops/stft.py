@@ -1,15 +1,18 @@
 """STFT primitives, in PyTorch.
 
 Counterpart of ``music_mixing_style_transfer_tpu/ops/stft.py``: the windows,
-framing and the forward STFT (both ``center`` conventions). The
-FX-normalization DSP uses ``center=False`` with a sqrt-Hann window
-(reference ``utils_data_normalization.py``). Not ported yet: ``istft`` and
-the loss front end's helpers (training).
+framing, the forward STFT (both ``center`` conventions) and its inverse.
+The FX-normalization DSP uses ``center=False`` with a sqrt-Hann window
+(reference ``utils_data_normalization.py``). Not ported yet: the loss front
+end's helpers (training).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models.blocks import reflect_pad
 
@@ -56,3 +59,40 @@ def stft(
     if center:
         x = reflect_pad(x, n_fft // 2, n_fft // 2)
     return torch.fft.rfft(frame(x, n_fft, hop_length) * w, n=n_fft, dim=-1)
+
+
+def istft(
+    spec: torch.Tensor,
+    hop_length: int,
+    window: np.ndarray,
+    center: bool = False,
+    length: Optional[int] = None,
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    """Inverse STFT of complex ``spec [..., n_frames, n_fft//2 + 1]`` with
+    squared-window overlap-add normalization; returns ``[..., T]``. The
+    overlap-add is ``F.fold`` (a sum per output sample, no atomics)."""
+    n_fft = 2 * (spec.shape[-1] - 1)
+    n_frames = spec.shape[-2]
+    w = torch.as_tensor(window, dtype=torch.float32, device=spec.device)
+    if len(window) < n_fft:
+        lpad = (n_fft - len(window)) // 2
+        w = F.pad(w, (lpad, n_fft - len(window) - lpad))
+    frames_t = torch.fft.irfft(spec, n=n_fft, dim=-1) * w  # [..., n_frames, n_fft]
+    T_full = n_fft + hop_length * (n_frames - 1)
+    batch = spec.shape[:-2]
+
+    def overlap_add(frames):  # [B, n_frames, n_fft] -> [B, T_full]
+        return F.fold(
+            frames.transpose(1, 2), output_size=(1, T_full), kernel_size=(1, n_fft),
+            stride=(1, hop_length),
+        ).reshape(frames.shape[0], T_full)
+
+    y = overlap_add(frames_t.reshape(-1, n_frames, n_fft)).reshape(*batch, T_full)
+    wsq = overlap_add((w * w).expand(1, n_frames, n_fft))[0]
+    y = y / wsq.clamp_min(eps)
+    if center:
+        y = y[..., n_fft // 2 : T_full - n_fft // 2]
+    if length is not None:
+        y = y[..., :length]
+    return y

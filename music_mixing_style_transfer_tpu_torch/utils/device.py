@@ -1,5 +1,7 @@
-"""Device selection for the port's entry points."""
+"""Device selection and float32 precision for the port's entry points."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -14,3 +16,16 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' (CLI: --inference_device cpu) to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_float32():
+    """TF32 off in cuDNN convolutions and matmuls inside the block, restored
+    afterwards. The flags are process-wide: callers in several threads must
+    not overlap (the server admits one computing request at a time)."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

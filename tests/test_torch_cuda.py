@@ -174,3 +174,125 @@ def test_envelope_wrapper_raises_on_what_the_kernel_does_not_take(card):
         compressor_envelope(x, *p[:-1], p[-1].cpu())
     with pytest.raises(ValueError, match="rows"):
         compressor_envelope(x, *p, rows=torch.zeros(4, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,T", [(96, 70001), (96, 1000), (1, 70001)])
+def test_envelope_kernel_per_channel_shapes(card, L, T):
+    """The per-channel compression matching's launches: 96 candidates that
+    all read one channel (``rows`` all zeros; chunk 64 below 128 lanes), and
+    the chosen candidate alone (one lane, ``rows`` [0], as ``_grid_one``
+    calls it). Against a float64 run of the plain version."""
+    x, *p = _lanes(L + T, L, T, card)
+    x = x[:1].contiguous()
+    rows = torch.zeros(L, dtype=torch.int64, device=card)
+    want, env_want = envelope_reference(x.double(), *(v.double() for v in p), rows=rows)
+    got, env = compressor_envelope(x, *p, rows=rows)
+    torch.cuda.synchronize()
+    assert got.shape == (L, T)
+    assert (got.double() - want).abs().max().item() <= ENVELOPE_TOL * want.abs().max().item()
+    assert (env.double() - env_want).abs().max().item() <= ENVELOPE_TOL * env_want.abs().max().item() + 1e-6
+
+
+def _music(rng, T, scale):
+    env = np.abs(np.sin(np.linspace(0, 20, T)))
+    x = rng.standard_normal((2, T)) * scale * (0.05 + env)
+    x[..., rng.integers(0, T, max(T // 3000, 1))] += 3 * scale
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_per_channel_normalizer_card_matches_cpu(card):
+    """``normalize_audio`` at T = 2^15 with the shipped features and a small
+    FFT: the same compression choices on the card as on the CPU, and the stem
+    within 1e-4 of max|cpu|."""
+    import os
+
+    from music_mixing_style_transfer_tpu_torch.config import NormalizationConfig
+    from music_mixing_style_transfer_tpu_torch.normalize import matching
+    from music_mixing_style_transfer_tpu_torch.normalize.normalizer import AudioEffectsNormalizer
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "music_mixing_style_transfer_tpu_torch", "weights",
+                        "musdb18_fxfeatures_eqcompimagegain.npy")
+    x = _music(np.random.default_rng(4), 2**15, 0.3)
+    picks = []
+    orig = matching._grid_one
+
+    def record(x_, r, t, *a):
+        picks.append((float(r), float(t)))
+        return orig(x_, r, t, *a)
+
+    out = {}
+    try:
+        matching._grid_one = record
+        for dev in ("cuda", "cpu"):
+            norm = AudioEffectsNormalizer(path, NormalizationConfig(stems=("drums",)), device=dev)
+            before = compressor_envelope.launches
+            out[dev] = norm.normalize_audio(x, "drums")
+            out[dev + "_launches"] = compressor_envelope.launches - before
+    finally:
+        matching._grid_one = orig
+    n = len(picks) // 2  # one pick per matched channel, card then CPU
+    assert len(picks) == 2 * n and picks[:n] == picks[n:]
+    assert out["cuda_launches"] >= 2 * n and out["cpu_launches"] == 0
+    err = np.abs(out["cuda"] - out["cpu"]).max()
+    assert np.isfinite(out["cuda"]).all() and err <= 1e-4 * np.abs(out["cpu"]).max()
+
+
+@pytest.mark.cuda
+def test_server_round_trip_on_the_card(card, tmp_path):
+    """/health, /embed and /transfer of a tiny engine on the card; the
+    written mixture equals the same engine's in-process run_directory."""
+    import json
+    import threading
+    import urllib.request
+
+    from music_mixing_style_transfer_tpu_torch.config import (
+        FXencoderConfig,
+        InferenceConfig,
+        TCNConfig,
+    )
+    from music_mixing_style_transfer_tpu_torch.data.wavio import read_wav, write_wav
+    from music_mixing_style_transfer_tpu_torch.infer.pipeline import (
+        MixingStyleTransfer,
+        StyleTransferEngine,
+    )
+    from music_mixing_style_transfer_tpu_torch.serve import StyleTransferService, serve
+
+    eng = StyleTransferEngine(
+        encoder_cfg=FXencoderConfig(channels=(8, 16), kernels=(25, 15), strides=(4, 4), dilation=(1, 1)),
+        converter_cfg=TCNConfig(condition_dimension=16, nblocks=4, channel_width=128),
+    )
+    cfg = InferenceConfig(segment_length=8192, segment_length_ref=8192, normalize_input=False,
+                          do_not_separate=True)
+    rng = np.random.default_rng(0)
+    for name in ("input", "reference"):
+        for inst in ("drums", "bass", "other", "vocals"):
+            write_wav(str(tmp_path / "s" / "s1" / "separated" / name / f"{inst}.wav"),
+                      (rng.standard_normal((12_000, 2)) * 0.2).astype(np.float32), 44100)
+    httpd = serve(StyleTransferService(eng, cfg), port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            assert json.loads(r.read())["backend"] == "cuda"
+        target = str(tmp_path / "s") + "/"
+        before = tcn_block.launches
+        written = post("/transfer", {"target_dir": target, "output_dir": str(tmp_path / "o") + "/"})
+        assert tcn_block.launches > before
+        emb = post("/embed", {"wav": str(tmp_path / "s" / "s1" / "separated" / "input" / "bass.wav")})
+        assert np.isfinite(emb["embedding"]).all()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    want = MixingStyleTransfer(eng, cfg).run_directory(target, str(tmp_path / "w") + "/")
+    got_mix, _ = read_wav(written["written"][0])
+    want_mix, _ = read_wav(want[0])
+    np.testing.assert_array_equal(got_mix, want_mix)

@@ -53,6 +53,16 @@ def test_default_device_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="inference_device cpu"):
         main(["--target_dir", "/nonexistent/", "--normalize_input", "false"])
+    # the server (its engine), feature extraction and the profiler
+    from music_mixing_style_transfer_tpu_torch import serve
+    from music_mixing_style_transfer_tpu_torch.infer import feature_extraction
+    from music_mixing_style_transfer_tpu_torch.tools import infer_prof
+
+    for entry, argv in ((serve.main, ["--port", "0"]),
+                        (feature_extraction.main, ["--target_dir", "/nonexistent/"]),
+                        (infer_prof.main, ["--seconds", "0.1"])):
+        with pytest.raises(RuntimeError, match="inference_device cpu"):
+            entry(argv)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():

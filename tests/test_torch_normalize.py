@@ -259,8 +259,15 @@ def test_normalizer_entry_points():
             AudioEffectsNormalizer(path)  # the card by default, and none here
     norm = AudioEffectsNormalizer(path, device="cpu")
     assert norm.batched() is norm.batched() and norm.batched().device.type == "cpu"
-    for call in (lambda: norm.normalize_audio(np.zeros((2, 10)), "drums"),
-                 lambda: norm.normalize_audio_per_effect(np.zeros((2, 10)), "drums", "eq")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the per-channel entry points run and match JAX's on the same input:
+    # the min_db skip returns the stem as it is; two cheap stages of the
+    # default config (the per-channel path's own tests: test_torch_normalize_channel.py)
+    jnorm = JaxNormalizer(path)
+    silent = np.zeros((2, 10), np.float32)
+    np.testing.assert_array_equal(norm.normalize_audio(silent, "drums"),
+                                  jnorm.normalize_audio(silent, "drums"))
+    x = music(np.random.default_rng(3), (2,), 2000, 0.3)
+    for effect in ("loudness", "imager"):
+        close(norm.normalize_audio_per_effect(x, "drums", effect),
+              jnorm.normalize_audio_per_effect(x, "drums", effect))
     assert dataclasses.asdict(norm.cfg) == dataclasses.asdict(JaxNormCfg())

@@ -175,6 +175,31 @@ def test_normalized_transfer_stems_matches_jax(engines, normalizers, rng):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_transfer_stems_takes_a_per_channel_normalizer(engines, rng):
+    """A normalizer with ``normalize_audio`` only (no ``normalize_stems``)
+    is called stem by stem, in both packages, and its output is clipped."""
+
+    class PerStem:
+        def __init__(self):
+            self.calls = []
+
+        def normalize_audio(self, x, src):
+            self.calls.append(src)
+            return x * 3.0
+
+    jax_eng, eng = engines
+    jcfg, cfg = _cfgs()
+    x = {i: (rng.standard_normal((2, 2500)) * 0.2).astype(np.float32) for i in INSTS}
+    ref = {i: (rng.standard_normal((2, 3000)) * 0.2).astype(np.float32) for i in INSTS}
+    jnorm, norm = PerStem(), PerStem()
+    want, _ = JaxMST(jax_eng, jcfg, normalizer=jnorm).transfer_stems(x, ref)
+    got, _ = MixingStyleTransfer(eng, cfg, normalizer=norm).transfer_stems(x, ref)
+    assert norm.calls == jnorm.calls == list(INSTS)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    plain, _ = MixingStyleTransfer(eng, cfg).transfer_stems(x, ref)
+    assert np.abs(got - plain).max() > 1e-3  # the normalizer's output was used
+
+
 def test_engine_runs_full_float32_whatever_the_process_flags(engines, rng):
     """The engine turns TF32 off in its own forward passes (a CLI user gets
     the float32 asked for) and restores the process-wide flags afterwards."""
