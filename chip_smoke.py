@@ -55,10 +55,25 @@ non-zero:
    configuration, normalized, in float32 and bfloat16 (one line each).
 9. CLI: ``python -m music_mixing_style_transfer_tpu_torch.infer.style_transfer``
    on a synthetic song directory, without and with FX normalization.
-10. the ``kernels`` line (launches of the main path, and per path under
+10. train_fxencoder: contrastive FXencoder training. Checks first: K2 at
+   the FX fast path's shape [128, 2^17 + 4096] (32 draws of the
+   ``Compressor``'s ranges over 2 contents x 2 channels) against a float64
+   run, timed; the 4 default instrument chains under one plan on the same
+   int16 segments (2^14 + 4096 samples, where the Equaliser scans, and
+   training's 2^17 + 4096, where it takes its FFT cascade), the card (K2)
+   against the CPU and the fast path against the generic walk, within 1e-4;
+   one step on a small encoder, card against CPU, TF32 off, within 1e-4
+   (its conv biases ahead of a BN within 1e-3). Then the training CLI
+   (``train.cli fxencoder --fused``) at full width on a synthetic corpus:
+   the default FXencoder, segments of 2^17, 4 items a step, 2 epochs of 3
+   steps in float32, a resume to epoch 3, one epoch in bfloat16; each
+   epoch's synced step (augmentation and train step apart), losses, K2
+   launches (the synced step's 2, validation's 2, and the epoch's),
+   checkpoints and each run's peak memory.
+11. the ``kernels`` line (launches of the main path, and per path under
    ``launches_by_path``: each path runs with the counts set to 0 just
-   before it and read just after), then the last line
-   ``{"ok": true, "device": {...}}``.
+   before it and read just after; K2's ``fastpath`` holds its case at the
+   training shape and the synced step's launches), then the last line ``{"ok": true, "device": {...}}``.
 
 It needs the card and the package beside it: without either it exits
 non-zero and prints no result. It imports nothing of JAX. Every case of
@@ -957,6 +972,230 @@ def phase_cli():
         emit("cli", t0, runs=results)
 
 
+FASTPATH_SHAPE = (128, 2**17 + 2 * 2048)  # training's K2 launch: 4 insts x 4 items x K 2 x 2 x 2 lanes
+# the card-vs-CPU augmentation's (loaded length, items): below 32768 samples the Equaliser runs
+# its scans, from 32768 on its FFT cascade, as training does at 2^17 + 4096
+AUG_CASES = ((2**14 + 2 * 2048, 4), (2**17 + 2 * 2048, 2))
+AUG_TOL = 1e-4                             # augmentation, card vs CPU (and fast vs generic), over max|cpu|
+STEP_TOL = 1e-4                            # contrastive step, card vs CPU: loss and each gradient
+BIAS_TOL = 1e-3                            # its conv biases ahead of a BN, over the largest gradient
+SMALL_ENC = dict(channels=(8, 16), kernels=(25, 15), strides=(4, 4), dilation=(1, 1))
+INSTS = ("drums", "bass", "other", "vocals")
+
+
+def train_corpus(root: str, rng, files: int = 2, seconds: float = 20.0) -> None:
+    """A synthetic MUSDB-layout corpus: ``train/`` and ``val/``, per
+    instrument ``files`` int16 stereo WAVs of ``seconds`` each."""
+    from music_mixing_style_transfer_tpu_torch.data.wavio import write_wav
+
+    for mode in ("train", "val"):
+        os.makedirs(os.path.join(root, mode), exist_ok=True)
+        for inst in INSTS:
+            for k in range(files):
+                x = synthetic_stems(rng, 1, int(seconds * SR))[0]
+                write_wav(os.path.join(root, mode, f"{inst}_normalized_eqcompimagegain_silence_trimmed{k}.wav"),
+                          x.T, SR)
+
+
+def fastpath_envelope_case():
+    """K2 at the fast path's shape [128, 2^17 + 4096]: 32 draws of the
+    ``Compressor``'s ranges (threshold -80...-5 dB, attack 1...20 ms, release
+    50...500 ms, ratio 4...40), each repeated over its 2 contents x 2
+    channels as ``fx/fastpath.py`` lays them out, on dequantized int16
+    music; against a float64 run of the plain version."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.fx.processors import Compressor
+    from music_mixing_style_transfer_tpu_torch.ops.compressor import alphas
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
+        compressor_envelope,
+        envelope_reference,
+        kernel_chunk,
+    )
+
+    L, T = FASTPATH_SHAPE
+    p = Compressor().sample(torch.Generator().manual_seed(SEED), L // 4)
+    rep = lambda v: v.to(torch.float32).repeat_interleave(4).cuda()  # noqa: E731
+    th, ratio = rep(p["threshold"]), rep(p["ratio"])
+    a_att, a_rel = alphas(rep(p["attack_ms"]), rep(p["release_ms"]), SR)
+    env0 = torch.zeros(L, device="cuda")
+    x = torch.from_numpy(synthetic_stems(np.random.default_rng(SEED + 3), L // 2, T).reshape(L, T)).cuda()
+    x = x.to(torch.float32) / 32768.0
+    args = (x, th, ratio, a_att.to(torch.float32), a_rel.to(torch.float32), env0)
+    want, env_want = envelope_reference(*(v.double() for v in args))
+    got, env = compressor_envelope(*args)
+    ms = cuda_time_ms(lambda: compressor_envelope(*args), 20)
+    scale, env_scale = want.abs().max().item(), env_want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    env_err = (env.double() - env_want).abs().max().item()
+    case = {
+        "shape": [L, T], "chunk": kernel_chunk(L), "ms": ms, "ns_per_step": ms * 1e6 / T,
+        **envelope_bound(L, T), "max_abs_err": err, "max_rel_err_float64": err / max(scale, 1e-30),
+        "env_err": env_err, "env_rel_err": env_err / max(env_scale, 1e-30),
+        "compressing_lanes": int(((got - x).abs().amax(-1) > 1e-3).sum()), "tol": ENVELOPE_TOL,
+    }
+    if not (err <= ENVELOPE_TOL * scale and env_err <= ENVELOPE_TOL * env_scale + 1e-6):
+        raise AssertionError(f"K2 at the fast path's shape is not within its float64 bar: {case}")
+    return case
+
+
+def augmentation_card_vs_cpu(T: int, B: int, seed: int):
+    """The 4 default instrument chains under one plan from a seeded
+    generator, on the same int16 segments of ``T`` samples, ``B`` items:
+    the fast path on the card (K2) against the fast path on the CPU (plain
+    versions), and against the generic walk on the card."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.fx import make_instrument_manipulators
+    from music_mixing_style_transfer_tpu_torch.fx.chain import plan_to
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.train.fused import augment_contrastive_views
+
+    K, pad = 2, 2048
+    man = make_instrument_manipulators()
+    gen = torch.Generator().manual_seed(seed)
+    plans = {inst: man[inst].draw(gen, B * K) for inst in INSTS}
+    segs = torch.from_numpy(synthetic_stems(np.random.default_rng(seed + 1), 4 * B * 2, T)
+                            .reshape(4, B, 2, 2, T))
+    t0 = time.perf_counter()
+    cpu = augment_contrastive_views(man, INSTS, segs, plans, pad)
+    cpu_s = time.perf_counter() - t0
+    card_plans = plan_to(plans, "cuda")
+    out = {}
+    for name, fast in (("fast", True), ("generic", False)):
+        before = compressor_envelope.launches
+        t0 = time.perf_counter()
+        views = augment_contrastive_views(man, INSTS, segs.cuda(), card_plans, pad, fast=fast)
+        torch.cuda.synchronize()
+        out[name] = {"views": views, "s": time.perf_counter() - t0,
+                     "launches": compressor_envelope.launches - before}
+    scale = max(float(v.abs().max()) for v in cpu)
+    err = lambda a, b: max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a, b))  # noqa: E731
+    case = {
+        "shape": [4, B * K, 2, T - 2 * pad], "cpu_s": cpu_s,
+        "card_fast_s": out["fast"]["s"], "card_generic_s": out["generic"]["s"],
+        "launches_fast": out["fast"]["launches"], "launches_generic": out["generic"]["launches"],
+        "max_abs_cpu": scale, "card_vs_cpu_err": err(out["fast"]["views"], cpu),
+        "fast_vs_generic_err": err(out["fast"]["views"], out["generic"]["views"]), "tol": AUG_TOL,
+    }
+    case["card_vs_cpu_rel_err"] = case["card_vs_cpu_err"] / scale
+    case["fast_vs_generic_rel_err"] = case["fast_vs_generic_err"] / scale
+    if not (case["card_vs_cpu_rel_err"] <= AUG_TOL and case["fast_vs_generic_rel_err"] <= AUG_TOL
+            and case["launches_fast"] == 2 and case["launches_generic"] == 8):
+        raise AssertionError(f"augmentation on the card failed its checks: {case}")
+    return case
+
+
+def contrastive_step_card_vs_cpu():
+    """One ``make_contrastive_train_step`` on ``SMALL_ENC`` from the same
+    weights on the card and on the CPU, TF32 off: the loss and every
+    gradient within 1e-4, but the conv biases ahead of a training-mode BN,
+    whose gradient is 0 in exact arithmetic and rounding noise on both:
+    their largest, on either side, within 1e-3 of the largest gradient."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig, TrainConfig
+    from music_mixing_style_transfer_tpu_torch.train.contrastive import (
+        init_contrastive,
+        make_contrastive_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 6)
+    a = torch.from_numpy((rng.standard_normal((4, 4, 2, 16384)) * 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((4, 4, 2, 12288)) * 0.2).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, state, _ = init_contrastive(FXencoderConfig(**SMALL_ENC), TrainConfig(), seed=SEED, device=dev)
+        state, loss = make_contrastive_train_step(0.1)(state, a.to(dev), b.to(dev))
+        runs[dev] = (float(loss), {n: p.grad.cpu() for n, p in state.model.named_parameters()})
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    g_max = max(float(g.abs().max()) for g in gc.values())
+    worst, zero_grads = 0.0, 0.0
+    for n, g in gc.items():
+        if n.endswith("conv1d.conv1d.bias"):  # rounding noise on both: bounded, not compared
+            zero_grads = max(zero_grads, float(g.abs().max()), float(gg[n].abs().max()))
+            continue
+        worst = max(worst, float((gg[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30))
+    case = {"loss_cpu": lc, "loss_card": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
+            "grad_max_rel_err": worst, "tol": STEP_TOL,
+            "zero_in_exact_arithmetic_grad_over_max_grad": zero_grads / g_max, "bias_tol": BIAS_TOL}
+    if not (case["loss_rel_err"] <= STEP_TOL and worst <= STEP_TOL and zero_grads <= BIAS_TOL * g_max):
+        raise AssertionError(f"the contrastive step on the card disagrees with the CPU: {case}")
+    return case
+
+
+def phase_train_fxencoder():
+    """Contrastive FXencoder training: K2 at the fast path's shape against
+    float64; augmentation card vs CPU; one step card vs CPU; then the
+    training CLI at full width (the default FXencoder, segments of 2^17, 4
+    items a step, ``--fused``) on a synthetic corpus: 2 epochs of 3 steps in
+    float32, a resume to epoch 3, and one epoch in bfloat16. Returns the
+    kernels' launches over the CLI runs, and the fast-path K2 case with the
+    K2 launches of one training step as the CLI's synced steps counted
+    them."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.train import cli
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    k2 = fastpath_envelope_case()
+    aug = [augmentation_card_vs_cpu(T, B, SEED + 4 + 4 * k) for k, (T, B) in enumerate(AUG_CASES)]
+    with full_float32():
+        step = contrastive_step_card_vs_cpu()
+    emit("train_fxencoder_checks", t0, fastpath_envelope=k2, augmentation=aug, contrastive_step=step)
+
+    steps, items = 3, 4
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        train_corpus(os.path.join(tmp, "corpus"), np.random.default_rng(SEED + 7))
+        tcn_block.launches = compressor_envelope.launches = 0
+        for name, out, extra in (
+            ("float32", "f32", ["--epochs", "2"]),
+            ("float32_resume", "f32", ["--epochs", "3"]),
+            ("bfloat16", "bf16", ["--epochs", "1", "--dtype", "bfloat16"]),
+        ):
+            t_run = time.perf_counter()
+            run_dir = os.path.join(tmp, out)
+            before = compressor_envelope.launches
+            torch.cuda.reset_peak_memory_stats()
+            cli.main(["fxencoder", "--data_dir", os.path.join(tmp, "corpus"), "--out_dir", run_dir,
+                      "--fused", "--steps_per_epoch", str(steps), "--batch_items", str(items), *extra])
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            new = recs[-(1 if name != "float32" else 2):]
+            runs.append({
+                "run": name, "seconds": time.perf_counter() - t_run,
+                "epochs": [r["epoch"] for r in recs], "losses": [r["loss"] for r in new],
+                "val_losses": [r.get("val_loss") for r in new], "wall": [r["wall"] for r in new],
+                "launches_per_epoch": [r["launches"]["compressor_envelope"] for r in new],
+                "launches_synced_step": [r["launches"]["compressor_envelope_synced_step"] for r in new],
+                "launches_val": [r["launches"]["compressor_envelope_val"] for r in new],
+                "launches": compressor_envelope.launches - before,
+                "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "checkpoints": sorted(os.listdir(os.path.join(run_dir, "ckpt"))),
+            })
+        launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+        torch.cuda.synchronize()
+    emit("train_fxencoder", t0, steps_per_epoch=steps, batch_items=items, runs=runs, launches=launches)
+    f32, resume, bf16 = runs
+    ok = (
+        f32["epochs"] == [0, 1] and resume["epochs"] == [0, 1, 2] and bf16["epochs"] == [0]
+        and all(np.isfinite(v) for r in runs for v in r["losses"] + r["val_losses"])
+        # 2 launches a training step (the two rounds of the eq/comp shuffle) and 2 for validation
+        and all(n == 2 for r in runs for n in r["launches_synced_step"] + r["launches_val"])
+        and all(n == 2 * steps + 2 for r in runs for n in r["launches_per_epoch"])
+        and f32["checkpoints"] == ["step_00000001.pt", "step_00000002.pt"]
+        and resume["checkpoints"] == ["step_00000002.pt", "step_00000003.pt"]
+        and launches["tcn_block"] == 0 and launches["compressor_envelope"] == 4 * (2 * steps + 2)
+    )
+    if not ok:
+        raise AssertionError(f"the training CLI failed its checks: {runs}, {launches}")
+    return launches, {**k2, "launches_per_step": runs[0]["launches_synced_step"][0]}
+
+
 def summary(cases) -> dict:
     """Per-launch numbers of ``cases`` (one dtype, one shape, every
     dilation): the largest error, and times and bounds averaged."""
@@ -971,7 +1210,7 @@ def summary(cases) -> dict:
 
 
 def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float,
-                       by_path: dict):
+                       by_path: dict, fastpath: dict):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -1021,7 +1260,7 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "name": "compressor_envelope",
         "route": "cuda",
         "source": "music_mixing_style_transfer_tpu_torch/csrc/envelope.cu",
-        "replaces": "music_mixing_style_transfer_tpu/ops/pallas/envelope.py:105",
+        "replaces": "music_mixing_style_transfer_tpu/ops/pallas/envelope.py:106",
         "launches": env_launches,
         "launches_by_path": {"main_path": env_launches,
                              **{p: n["compressor_envelope"] for p, n in by_path.items()}},
@@ -1039,6 +1278,7 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "max_rel_err_float64": env["max_rel_err_float64"],
         "final": final,
         "per_channel": {"sweep": times["channel_sweep"], "final": times["channel_final"]},
+        "fastpath": fastpath,
     }
     emit("kernels_line", t0, cases=[c for cases in main_cases.values() for c in cases],
          total_s=round(time.perf_counter() - t_all, 3))
@@ -1069,8 +1309,10 @@ def main() -> int:
         "infer_prof": phase_infer_prof(),
     }
     phase_cli()
+    by_path["train_fxencoder"], fastpath = phase_train_fxencoder()
     with full_float32():
-        kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path)
+        kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path,
+                                     fastpath)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1,0 +1,230 @@
+"""Training data: MUSDB-style FX-manipulated contrastive pairs, in PyTorch.
+
+Counterpart of part of ``music_mixing_style_transfer_tpu/data/datasets.py``
+(reference ``data_loader/data_loader.py``). The host reads raw WAV segments
+and draws the plans; every effect runs batched on the card
+(``train/fused.py``).
+
+- :class:`ContrastivePairDataset` (reference
+  ``MUSDB_Dataset_Mixing_Manipulated_FXencoder`` :115-348): two segments
+  (A, B) of different content per instrument; ``num_strong_negatives + 1``
+  FX draws applied to the same (A, B) pair give the positives (A_k, B_k)
+  and the strong negatives (A_j, B_j, j != k).
+- the random-duration crop plan (reference
+  ``Collate_Variable_Length_Segments`` :33-102): lengths in [L/2, L)
+  bucketed to multiples of a quantum, starts per item.
+
+The host-side numpy draws (file, start, crop plan) are the JAX package's
+code, so segments and crop plans equal its own bit for bit. Torch cannot
+reproduce JAX's FX keys: each item's FX plan comes from a
+``torch.Generator`` seeded with ``_seed_for(idx, epoch_seed)`` (the seed
+JAX's key comes from), so a run repeats from its seed. Not ported yet
+(ROADMAP): the on-disk val cache, ``StyleTransferTripletDataset``,
+``generate_contents_w_effects`` and the native C++ wav bank (its segments
+equal the ``wavio`` reads, JAX ``tests/test_native.py``).
+"""
+from __future__ import annotations
+
+import glob as globlib
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..fx import make_instrument_manipulators
+from ..fx.chain import cat_plans
+from .wavio import read_wav, wav_length
+
+PAD_B4_MANIPULATION = 2048  # reference data_loader.py:127
+
+
+def _bucket_length(n: int, quantum: int = 4096) -> int:
+    return max(quantum, (n // quantum) * quantum)
+
+
+def to_transport(segs: np.ndarray, transport: str = "auto") -> np.ndarray:
+    """Quantize float32 segments to int16 for the host->card copy when that
+    is lossless (sources read from 16-bit PCM are exactly ``pcm/32768``);
+    ``auto`` checks the round trip and keeps float32 otherwise."""
+    if transport == "float32":
+        return segs
+    q = np.clip(np.round(segs * 32768.0), -32768, 32767).astype(np.int16)
+    if transport == "int16":
+        return q
+    if transport != "auto":
+        raise ValueError(f"unknown transport {transport!r}")
+    exact = np.array_equal(q.astype(np.float32) * (1.0 / 32768.0), segs)
+    return q if exact else segs
+
+
+class _MUSDBFiles:
+    """Per-instrument file lists with duration-ratio sampling weights
+    (reference ``data_loader.py:135-146``), read through ``wavio``."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        instruments: Sequence[str],
+        use_normalized: bool = True,
+        normalization_order: str = "eqcompimagegain",
+    ):
+        self.paths: Dict[str, List[str]] = {}
+        self.weights: Dict[str, np.ndarray] = {}
+        self.lengths: Dict[str, List[int]] = {}
+        for inst in instruments:
+            if use_normalized:
+                pattern = f"{data_dir}/{inst}_normalized_{normalization_order}_silence_trimmed*.wav"
+            else:
+                pattern = f"{data_dir}/{inst}_silence_trimmed*.wav"
+            paths = sorted(globlib.glob(pattern))
+            if not paths:
+                raise FileNotFoundError(f"no files match {pattern}")
+            lengths = [wav_length(p) for p in paths]
+            self.paths[inst] = paths
+            self.lengths[inst] = lengths
+            self.weights[inst] = np.asarray(lengths, np.float64) / sum(lengths)
+
+    def sample_segments(
+        self, rng: np.random.Generator, inst: str, n: int, duration: int
+    ) -> np.ndarray:
+        """Load ``n`` random segments ``[n, 2, duration]`` (length-weighted
+        file choice, random start; shorter files zero-padded)."""
+        idxs = rng.choice(len(self.paths[inst]), size=n, p=self.weights[inst])
+        starts = [
+            int(rng.integers(0, max(self.lengths[inst][fi] - duration, 1)))
+            if self.lengths[inst][fi] > duration
+            else 0
+            for fi in idxs
+        ]
+        out = np.zeros((n, 2, duration), np.float32)
+        for i, (fi, start) in enumerate(zip(idxs, starts)):
+            path = self.paths[inst][fi]
+            seg, _ = read_wav(path, start=start, duration=min(duration, self.lengths[inst][fi]))
+            seg = seg.T[:2] if seg.shape[1] >= 2 else np.repeat(seg.T, 2, 0)
+            out[i, :, : seg.shape[-1]] = seg
+        return out
+
+
+class ContrastivePairDataset:
+    """FXencoder contrastive data: per-instrument raw (A, B) segments and
+    the FX plans of their draws."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        mode: str = "train",
+        instruments: Sequence[str] = ("drums", "bass", "other", "vocals"),
+        segment_length: int = 2**17,
+        num_strong_negatives: int = 1,
+        apply_prob_dict: Optional[Dict[str, float]] = None,
+        reverb_prob: Optional[Dict[str, float]] = None,
+        ir_bank: Optional[np.ndarray] = None,
+        use_normalized: bool = True,
+        normalization_order: str = "eqcompimagegain",
+        fixed_random_seed: int = 777,
+        sample_rate: int = 44100,
+        pad_b4_manipulation: bool = True,
+    ):
+        self.files = _MUSDBFiles(
+            os.path.join(data_dir, mode), instruments, use_normalized, normalization_order
+        )
+        self.mode = mode
+        self.instruments = tuple(instruments)
+        self.segment_length = segment_length
+        self.num_strong_negatives = num_strong_negatives
+        self.fixed_random_seed = fixed_random_seed
+        self.sample_rate = sample_rate
+        self.pad = PAD_B4_MANIPULATION if pad_b4_manipulation else 0
+        self.manipulators = make_instrument_manipulators(
+            instruments, apply_prob_dict, reverb_prob, ir_bank, sample_rate
+        )
+
+    # ------------------------------------------------------------------
+    def _rng_for(self, idx: int, epoch_seed: Optional[int]) -> np.random.Generator:
+        if self.mode == "train":
+            return np.random.default_rng(np.random.SeedSequence([epoch_seed or 0, idx]))
+        return np.random.default_rng(idx * self.fixed_random_seed)
+
+    def _seed_for(self, idx: int, epoch_seed: Optional[int]) -> int:
+        if self.mode == "train":
+            return (epoch_seed or 0) * 1_000_003 + idx
+        return idx * self.fixed_random_seed
+
+    # ------------------------------------------------------------------
+    def batch_plans(self, indices: Sequence[int], epoch_seed: Optional[int] = None) -> Dict[str, dict]:
+        """FX plans of ``indices``: per instrument its chain's plan for
+        ``len(indices) * K`` draws, item-major (item j's K draws at
+        ``j*K : (j+1)*K``). Item j draws every instrument, in order, from a
+        generator seeded with ``_seed_for(j, epoch_seed)``."""
+        K = self.num_strong_negatives + 1
+        per_inst: Dict[str, list] = {inst: [] for inst in self.instruments}
+        for idx in indices:
+            gen = torch.Generator().manual_seed(self._seed_for(idx, epoch_seed))
+            for inst in self.instruments:
+                per_inst[inst].append(self.manipulators[inst].draw(gen, K))
+        return {inst: cat_plans(p) for inst, p in per_inst.items()}
+
+    def sample_raw_batch(
+        self,
+        indices: Sequence[int],
+        epoch_seed: Optional[int] = None,
+        transport: str = "auto",
+        plans: Optional[Dict[str, dict]] = None,
+    ) -> Tuple[np.ndarray, Dict[str, dict]]:
+        """Host side of the fused train path (``train/fused.py``): raw
+        segments and FX plans, no card work. Returns ``(segs [n_inst, B,
+        2(content A/B), 2(ch), L_load]`` (int16 when losslessly
+        quantizable, else float32), ``plans)``; ``plans`` is
+        :meth:`batch_plans` of ``indices`` unless given."""
+        load_len = self.segment_length + 2 * self.pad
+        n_inst, B = len(self.instruments), len(indices)
+        segs = np.zeros((n_inst, B, 2, 2, load_len), np.float32)
+        for j, idx in enumerate(indices):
+            rng = self._rng_for(idx, epoch_seed)
+            for ii in range(n_inst):
+                segs[ii, j] = self.files.sample_segments(rng, self.instruments[ii], 2, load_len)
+        if plans is None:
+            plans = self.batch_plans(indices, epoch_seed)
+        return to_transport(segs, transport), plans
+
+    def collate_plan(
+        self,
+        n_items: int,
+        rng: np.random.Generator,
+        quantum: Optional[int] = None,
+    ) -> Tuple[int, int, np.ndarray, np.ndarray]:
+        """The (la, lb, sa, sb) draw of :meth:`collate_random_duration`
+        without touching audio: the fused path crops on the card."""
+        L = self.segment_length
+        if quantum is None:
+            quantum = max(4096, L // 8)
+        la = _bucket_length(int(rng.integers(L // 2, L)), quantum)
+        lb = _bucket_length(int(rng.integers(L // 2, L)), quantum)
+        sa = np.array([int(rng.integers(0, L - la + 1)) for _ in range(n_items)], np.int32)
+        sb = np.array([int(rng.integers(0, L - lb + 1)) for _ in range(n_items)], np.int32)
+        return la, lb, sa, sb
+
+    def collate_random_duration(
+        self,
+        batch_a: Dict[str, np.ndarray],
+        batch_b: Dict[str, np.ndarray],
+        rng: np.random.Generator,
+        quantum: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Random-duration crop shared across the batch (reference collate
+        :46-75), the A and B lengths drawn independently
+        (``data_loader.py:51``) and bucketed to ``quantum`` (default
+        ``max(4096, L//8)``); starts stay fully random. ``batch_a/b``:
+        ``inst -> [B, 2, L]``. Returns ``[n_inst, B, 2, La] / [..., Lb]``."""
+        n_items = next(iter(batch_a.values())).shape[0]
+        la, lb, sa, sb = self.collate_plan(n_items, rng, quantum)
+        a = np.stack([
+            np.stack([batch_a[i][j, :, sa[j] : sa[j] + la] for j in range(n_items)])
+            for i in self.instruments
+        ])
+        b = np.stack([
+            np.stack([batch_b[i][j, :, sb[j] : sb[j] + lb] for j in range(n_items)])
+            for i in self.instruments
+        ])
+        return a, b

@@ -96,6 +96,11 @@ def _decode(raw: bytes, info: _WavInfo, path: str) -> np.ndarray:
     raise ValueError(f"{path}: unsupported sample width {info.width * 8}-bit")
 
 
+def wav_length(path: str) -> int:
+    """Number of frames in a WAV file (reference ``load_wav_length``)."""
+    return _parse_header(path).n_frames
+
+
 def read_wav(
     path: str,
     start: int = 0,

@@ -6,6 +6,9 @@
   ``mixfxcloner_from_torch`` (JAX ``models/torch_import.py:42-114``); the
   JAX package keeps conv kernels in the torch layout ``[out, in, k]``, so
   this is a renaming, no transposes.
+- ``train_state_from_jax`` carries a JAX ``TrainState``'s parameters and
+  BN statistics into a fresh port ``TrainState`` (new Adam state), so both
+  packages can train from the same weights.
 - ``load_torch_state_dict`` reads a published reference checkpoint
   (``FXencoder_ps.pt``, ``MixFXcloner_ps.pt``): a state dict, possibly
   under a ``"model"`` key and with DDP ``module.`` prefixes
@@ -69,6 +72,25 @@ def mixfxcloner_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     sd["output.weight"] = _t(params["output_weight"])
     sd["output.bias"] = _t(params["output_bias"])
     return sd
+
+
+def train_state_from_jax(jax_state, config=None, train_cfg=None, device="cpu"):
+    """A JAX ``train/state.py:TrainState`` (``params``, ``batch_stats``,
+    ``step``) -> the port's ``TrainState``: an ``FXencoder`` of ``config``
+    holding those weights on ``device`` in training mode, a fresh optimizer
+    (``make_optimizer``) and the step carried over."""
+    from ..config import TrainConfig
+    from ..train.state import TrainState, make_lr_schedule, make_optimizer
+    from .fx_encoder import FXencoder
+
+    tcfg = train_cfg or TrainConfig()
+    model = FXencoder(config, remat=tcfg.remat)
+    model.load_state_dict(fxencoder_from_jax(
+        {"params": jax_state.params, "batch_stats": jax_state.batch_stats}
+    ))
+    model = model.to(device).train()
+    opt = make_optimizer(model.parameters(), tcfg.learning_rate, tcfg.weight_decay)
+    return TrainState(int(jax_state.step), model, opt, make_lr_schedule(tcfg))
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

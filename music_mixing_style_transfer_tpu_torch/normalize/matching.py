@@ -414,13 +414,15 @@ def comp_match(
     if (ref_peak - ref_std) < peak < (ref_peak + ref_std):
         return x
     if peak > ref_peak - ref_std:  # too dynamic: downward compression
-        R, T = _comp_grid(ratio, min_th, max_ratio, expander=False)
         mode = "down"
     elif expander:  # too flat: upward expansion
-        R, T = _comp_grid(ratio, min_th, max_ratio, expander=True)
         mode = "up"
     else:
         return x
+    try:
+        R, T = _comp_grid(ratio, min_th, max_ratio, expander=mode == "up")
+    except ValueError as e:  # a negative candidate count (max_ratio < ratio - 1, min_th > -9.5)
+        raise MatchingError(f"no compression candidate grid: {e}") from e
     return _comp_match_select(
         x, R, T, attack_ms, release_ms, ref_peak, ref_std, sr, percentile, mode
     )

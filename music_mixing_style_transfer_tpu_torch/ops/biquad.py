@@ -184,10 +184,12 @@ def biquad_apply(
 
         t[n] = p1 t[n-1] + f[n];   y[n] = p2 y[n-1] + t[n]
 
-    each a log-depth scan on complex64. No partial fractions (robust at
-    repeated poles). ``poles [..., 2]`` (e.g. :func:`rbj_poles`) are used
-    when given; otherwise they come from ``a1, a2`` with a compensated
-    discriminant, accurate except near critical damping."""
+    each a log-depth scan on complex64 (complex128 for float64 ``x``). No
+    partial fractions (robust at repeated poles). ``poles [..., 2]`` (e.g.
+    :func:`rbj_poles`) are used when given; otherwise they come from ``a1,
+    a2`` with a compensated discriminant, accurate except near critical
+    damping."""
+    cdtype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
     coeffs = coeffs.to(x.device)
     b = coeffs[..., :3]
     a1, a2 = coeffs[..., 3], coeffs[..., 4]
@@ -198,11 +200,11 @@ def biquad_apply(
         poles = poles.to(x.device)
         p1, p2 = poles[..., 0], poles[..., 1]
     else:
-        disc = torch.sqrt(_compensated_disc(a1, a2).to(torch.complex64))
-        p1 = (-a1.to(torch.complex64) + disc) / 2.0
-        p2 = (-a1.to(torch.complex64) - disc) / 2.0
-    p1, p2 = (_clamp_radius(p).to(torch.complex64)[..., None] for p in (p1, p2))
-    t = _first_order_scan(p1, f.to(torch.complex64))
+        disc = torch.sqrt(_compensated_disc(a1, a2).to(cdtype))
+        p1 = (-a1.to(cdtype) + disc) / 2.0
+        p2 = (-a1.to(cdtype) - disc) / 2.0
+    p1, p2 = (_clamp_radius(p).to(cdtype)[..., None] for p in (p1, p2))
+    t = _first_order_scan(p1, f.to(cdtype))
     return _first_order_scan(p2, t).real.to(x.dtype)
 
 

@@ -54,9 +54,16 @@ def static_gain_curve(x_g: torch.Tensor, threshold, ratio) -> torch.Tensor:
 
 
 def alphas(attack_ms, release_ms, sample_rate, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    a_att = torch.exp(-1.0 / (0.001 * sample_rate * _f32(attack_ms, device)))
-    a_rel = torch.exp(-1.0 / (0.001 * sample_rate * _f32(release_ms, device)))
-    return a_att, a_rel
+    """The one-pole coefficients ``exp(-1 / (0.001 * sr * ms))`` of the
+    float32 times, taken in float64 and rounded to float32. ``1 - a`` is
+    ~1e-4 at long releases, so one ulp of a float32 ``exp`` moves the time
+    constant by ~1e-4 of itself; rounding a float64 result gives the card
+    and the CPU the same coefficients."""
+    def a(ms):
+        t = _f32(ms, device).double()
+        return torch.exp(-1.0 / (0.001 * sample_rate * t)).float()
+
+    return a(attack_ms), a(release_ms)
 
 
 def _lanes(p, batch_shape, device) -> torch.Tensor:

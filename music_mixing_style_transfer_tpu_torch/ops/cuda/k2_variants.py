@@ -14,7 +14,8 @@ over max|float64|; per-launch ms at the main path's two shapes, the sweep's
 [1024, 262144] slab reading 8 rows and the final [8, 655360], and at the
 per-channel normalizer's sweep, [96, 655360] reading one row, each at the
 chunk the variant's source takes for its lane count (the chunk variants
-change that choice). The variants are timed in the order given, then in
+change that choice), and at training's fast-path launch, [128, 135168]
+with a signal per lane. The variants are timed in the order given, then in
 reverse. ``traced`` is the shipped kernel with a %globaltimer stamp per warp at the
 phase boundaries; for it each shape also gets the median (10th, 50th, 90th
 percentile) ns of phase A, of the wait for the carry, of phase B, of phase
@@ -67,6 +68,10 @@ VARIANTS = {
     "chunk32": [
         ("constexpr int MANY_LANES_CHUNK = 16;", "constexpr int MANY_LANES_CHUNK = 32;", 1),
         ("constexpr int FEW_LANES_CHUNK = 64;", "constexpr int FEW_LANES_CHUNK = 32;", 1),
+    ],
+    # chunk 64 from 128 lanes on too: training's fast-path launch [128, 135168]
+    "many_lanes_chunk64": [
+        ("constexpr int MANY_LANES_CHUNK = 16;", "constexpr int MANY_LANES_CHUNK = 64;", 1),
     ],
     # chunk 16 for few lanes too: the final compression's chain at its longest
     "final_chunk16": [
@@ -234,7 +239,8 @@ def main() -> int:
             want = k2.envelope_reference(*(a.double() for a in args), rows=rows)[0]
             acc[name] = (args, rows, want)
         timed = {"sweep": _lanes(1024, 2**18, 2, True), "final": _lanes(8, 655360, 3, False),
-                 "channel_sweep": _lanes(96, 655360, 4, True, n_rows=1)}
+                 "channel_sweep": _lanes(96, 655360, 4, True, n_rows=1),
+                 "fastpath": _lanes(128, 2**17 + 4096, 5, False)}
         order = list(VARIANTS)
         for n_pass, names in enumerate((order, order[::-1])):
             for name in names:

@@ -1,0 +1,18 @@
+from .checkpoint import CheckpointManager
+from .contrastive import contrastive_loss_fn, init_contrastive, make_contrastive_train_step
+from .fused import FusedContrastivePipeline, augment_contrastive_views, crop_views
+from .state import TrainState, current_lr, make_lr_schedule, make_optimizer
+
+__all__ = [
+    "CheckpointManager",
+    "TrainState",
+    "current_lr",
+    "make_lr_schedule",
+    "make_optimizer",
+    "init_contrastive",
+    "contrastive_loss_fn",
+    "make_contrastive_train_step",
+    "FusedContrastivePipeline",
+    "augment_contrastive_views",
+    "crop_views",
+]

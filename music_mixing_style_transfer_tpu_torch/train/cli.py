@@ -1,0 +1,153 @@
+"""Training CLI of the PyTorch port, flag-compatible with
+``music_mixing_style_transfer_tpu/train/cli.py``:
+
+    python -m music_mixing_style_transfer_tpu_torch.train.cli fxencoder \
+        --data_dir /data/musdb_normalized --out_dir runs/enc --epochs 100 --fused
+
+Trains on the card (``--device cuda``, the default) unless ``--device cpu``
+is given. ``--data_dir`` holds ``train/`` (and ``val/`` or ``test/``) with
+the MUSDB layout's ``{inst}_normalized_eqcompimagegain_silence_trimmed*.wav``.
+
+Differences from the JAX CLI: ``--device``; ``--encoder_config``, a JSON
+object of ``FXencoderConfig`` fields (the default is the published
+architecture; smaller ones serve tests and cut-depth runs). ``--no_mesh``
+is accepted and changes nothing: one process on one card (the data-parallel
+trainer is ROADMAP's DDP item). ``--retries`` is accepted and changes
+nothing: the JAX CLI re-executes on a TPU runtime's transient failures
+(a dropped compile service, a preemption), and a CUDA launch failure is no
+such thing (it leaves the process's context unusable and repeats on a
+rerun); resume from the checkpoints with a second run instead. The
+``converter`` model exits with an error until the converter trainer is
+ported (ROADMAP A, item 1).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+from ..config import FXencoderConfig, TrainConfig
+from .loop import train_fxencoder
+
+CONVERTER_MESSAGE = (
+    "converter training is not yet ported to the PyTorch package (ROADMAP A, item 1: "
+    "train/converter.py, losses/spectral.py, StyleTransferTripletDataset, augment_triplets)"
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("model", choices=["fxencoder", "converter"])
+    p.add_argument("--data_dir", type=str, required=True)
+    p.add_argument("--out_dir", type=str, required=True)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--steps_per_epoch", type=int, default=40)
+    p.add_argument("--batch_items", type=int, default=4)
+    p.add_argument("--segment_length", type=int, default=2**17)
+    p.add_argument("--learning_rate", type=float, default=2e-4)
+    p.add_argument("--lr_schedule", type=str, default="constant",
+                   choices=["constant", "warmup_cosine", "step"],
+                   help="LR schedule, a function of the optimizer step: a resumed run "
+                        "continues mid-schedule")
+    p.add_argument("--lr_warmup_steps", type=int, default=0)
+    p.add_argument("--lr_decay_steps", type=int, default=10_000,
+                   help="(warmup_cosine) total decay horizon in steps")
+    p.add_argument("--lr_end_factor", type=float, default=0.0,
+                   help="(warmup_cosine) final LR as a fraction of peak")
+    p.add_argument("--lr_step_size", type=int, default=1_000, help="(step) steps between decays")
+    p.add_argument("--lr_gamma", type=float, default=0.5, help="(step) decay factor")
+    p.add_argument("--collate_quantum", type=int, default=None,
+                   help="(fxencoder) random-duration collate bucket size "
+                        "(default max(4096, segment_length // 8))")
+    p.add_argument("--num_strong_negatives", type=int, default=1)
+    p.add_argument("--temperature", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no_mesh", action="store_true",
+                   help="accepted for the JAX CLI's sake; one card, no mesh")
+    p.add_argument("--fused", action="store_true",
+                   help="walk all instruments' FX chains as one batched pass (fx/fastpath.py); "
+                        "without it, one chain per instrument. Both on the device, same numbers")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                   help="compute dtype (parameters, optimizer and losses stay float32)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the encoder's blocks in the backward pass "
+                        "(torch.utils.checkpoint): one block's activations at a time")
+    p.add_argument("--encoder_ckpt", type=str, default=None,
+                   help="(converter) the frozen encoder's checkpoint")
+    p.add_argument("--prob_schedule", type=str, default=None,
+                   help="(fxencoder) target probs, e.g. 'eq=0.5,comp=0.5'")
+    p.add_argument("--save_every", type=int, default=1,
+                   help="checkpoint every N epochs; the final epoch always saves")
+    p.add_argument("--val_every", type=int, default=1,
+                   help="held-out val loss every N epochs (0 disables); deterministic seeds + "
+                        "end-of-schedule probs, logged as val_loss in metrics.jsonl")
+    p.add_argument("--val_items", type=int, default=2, help="items per held-out validation batch")
+    p.add_argument("--ori_weight", type=float, default=0.0,
+                   help="(converter) weight of the per-channel L/R spectral term")
+    p.add_argument("--retries", type=int, default=0,
+                   help="accepted for the JAX CLI's sake; no effect (see the module docstring)")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where to train; cpu only for tests")
+    p.add_argument("--encoder_config", type=str, default=None,
+                   help="JSON object of FXencoderConfig fields, e.g. "
+                        "'{\"channels\": [8, 16], \"kernels\": [25, 15], \"strides\": [4, 4], "
+                        "\"dilation\": [1, 1]}'")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.model == "converter":
+        p.error(CONVERTER_MESSAGE)
+    # fail fast: a missing corpus must not cost a full-size model build
+    if not os.path.isdir(args.data_dir):
+        p.error(f"--data_dir {args.data_dir}: not a directory")
+
+    enc_cfg = None
+    if args.encoder_config:
+        fields = json.loads(args.encoder_config)
+        enc_cfg = dataclasses.replace(
+            FXencoderConfig(), **{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()}
+        )
+    tcfg = TrainConfig(
+        segment_length=args.segment_length,
+        learning_rate=args.learning_rate,
+        lr_schedule=args.lr_schedule,
+        lr_warmup_steps=args.lr_warmup_steps,
+        lr_decay_steps=args.lr_decay_steps,
+        lr_end_factor=args.lr_end_factor,
+        lr_step_size=args.lr_step_size,
+        lr_gamma=args.lr_gamma,
+        num_strong_negatives=args.num_strong_negatives,
+        temperature=args.temperature,
+        seed=args.seed,
+        compute_dtype=args.dtype,
+        remat=args.remat,
+    )
+    target = None
+    if args.prob_schedule:
+        target = {k: float(v) for k, v in (kv.split("=") for kv in args.prob_schedule.split(","))}
+    train_fxencoder(
+        args.data_dir,
+        args.out_dir,
+        encoder_cfg=enc_cfg,
+        train_cfg=tcfg,
+        epochs=args.epochs,
+        steps_per_epoch=args.steps_per_epoch,
+        batch_items=args.batch_items,
+        prob_schedule_target=target,
+        fused=args.fused,
+        collate_quantum=args.collate_quantum,
+        save_every=args.save_every,
+        val_every=args.val_every,
+        val_items=args.val_items,
+        device=args.device,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,166 @@
+"""Fused-augmentation contrastive training: FX manipulation runs on the card,
+between the raw PCM's upload and the train step.
+
+Counterpart of the contrastive half of
+``music_mixing_style_transfer_tpu/train/fused.py``. The host uploads raw
+int16 segments, the FX plans and the crop offsets; the card dequantizes,
+runs every instrument's chain (``fx/fastpath.py``: K2 for the
+compressors), trims the pad, clips, crops the two views and takes the
+train step. Numerics are the generic path's (``fast=False``, one chain per
+instrument): the fast path is an evaluation-strategy change
+(``tests/test_torch_fastpath.py``). Reference semantics:
+``data_loader.py:115-348`` (contrastive pairs), ``:33-102`` (the
+variable-length collate). The converter half waits for the converter
+trainer (ROADMAP).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..fx.chain import AugmentationChain, plan_to
+from ..fx.fastpath import UnsupportedTopology, eval_manipulators_batched
+from ..models.fx_encoder import keep_buffers
+from ..utils.device import full_float32, resolve_device
+from .contrastive import contrastive_loss_fn, make_contrastive_train_step
+from .state import TrainState
+
+
+def _dequant(segs: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 in [-1, 1); float32 passes through."""
+    if segs.dtype == torch.int16:
+        return segs.to(torch.float32) * (1.0 / 32768.0)
+    return segs
+
+
+def crop_views(views: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
+    """``[n_inst, B, 2, L] -> [n_inst, B, 2, length]``, item j from
+    ``starts[j]`` on in every instrument (the collate's contract,
+    ``data_loader.py:60-75``); starts are clamped into the signal as
+    ``lax.dynamic_slice`` clamps them."""
+    L = views.shape[-1]
+    starts = torch.as_tensor(starts, dtype=torch.int64, device=views.device).clamp(0, L - length)
+    idx = starts[:, None] + torch.arange(length, device=views.device)  # [B, length]
+    return torch.gather(views, -1, idx[None, :, None, :].expand(views.shape[:-1] + (length,)))
+
+
+def augment_contrastive_views(
+    manipulators: Dict[str, AugmentationChain],
+    instruments: Sequence[str],
+    segs: torch.Tensor,          # [n_inst, items, 2(content A/B), 2(ch), L_load]
+    plans: Dict[str, dict],      # per instrument: its chain's plan for items*K draws
+    pad: int,
+    fast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The augmented views of ``ContrastivePairDataset``'s raw batch: per
+    (item, k) one FX draw applied to both content segments (the positive
+    pair), the pad trimmed, clipped to +-1. Returns full-length views
+    ``([n_inst, items*K, 2, L], [same])`` for :func:`crop_views`.
+
+    ``fast=True`` evaluates all instruments' chains in one batched walk
+    (``fx/fastpath.py``), the generic walk where it cannot."""
+    x = _dequant(segs)
+    if fast:
+        try:
+            return _augment_contrastive_fast(manipulators, instruments, x, plans, pad)
+        except UnsupportedTopology:
+            pass
+    batch_a, batch_b = [], []
+    for i, inst in enumerate(instruments):
+        plan = plans[inst]
+        K = plan["stages"][0]["gate"].shape[0] // x.shape[1]
+        draws = x[i].repeat_interleave(K, dim=0)  # [items*K, 2, 2, L_load], item-major
+        man = manipulators[inst].apply(plan, draws)
+        if pad:
+            man = man[..., pad:-pad]
+        man = man.clamp(-1.0, 1.0)
+        batch_a.append(man[:, 0])
+        batch_b.append(man[:, 1])
+    return torch.stack(batch_a), torch.stack(batch_b)
+
+
+def _augment_contrastive_fast(manipulators, instruments, x, plans, pad):
+    """Batched-draw :func:`augment_contrastive_views`: draw axis = (inst,
+    item, k), instrument-major; each content pair repeated per k-draw so one
+    walk covers every draw."""
+    n_inst, B = x.shape[0], x.shape[1]
+    DK = plans[instruments[0]]["stages"][0]["gate"].shape[0]  # items * K
+    x_draws = x.repeat_interleave(DK // B, dim=1).reshape((n_inst * DK,) + tuple(x.shape[2:]))
+    y = eval_manipulators_batched(manipulators, instruments, plans, x_draws, DK)
+    if pad:
+        y = y[..., pad:-pad]
+    y = y.clamp(-1.0, 1.0).reshape((n_inst, DK) + tuple(y.shape[1:]))
+    return y[:, :, 0], y[:, :, 1]
+
+
+class FusedContrastivePipeline:
+    """Card-resident contrastive training: ``augment -> crop + step``, the
+    loss the only value that comes back (and that only when read).
+
+    ``set_chains`` binds the FX chains (the epoch's dataset's; with
+    probability scheduling the plans carry the epoch's gates). ``step``
+    takes a raw batch from ``ContrastivePairDataset.sample_raw_batch`` and
+    the crop plan from ``collate_plan``. With ``sync=True`` it ends each
+    phase in ``torch.cuda.synchronize`` (on the card) and leaves the
+    phases' seconds in ``last_split``. ``fast``: the batched walk over all
+    instruments (``fx/fastpath.py``), else one chain per instrument."""
+
+    def __init__(self, temperature: float = 0.1, compute_dtype: str = "float32", device="cuda",
+                 fast: bool = True):
+        self.temperature = temperature
+        self.fast = fast
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self._chains = None
+        self._step = make_contrastive_train_step(temperature, compute_dtype)
+        self.last_split: Dict[str, float] = {}
+
+    def set_chains(self, manipulators: Dict[str, AugmentationChain], instruments: Sequence[str],
+                   pad: int) -> None:
+        self._chains = (manipulators, tuple(instruments), pad)
+
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (nothing on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def augment(self, segs, plans) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Upload a raw batch and its plans; the full-length views."""
+        if self._chains is None:
+            raise RuntimeError("call set_chains() before step() or loss()")
+        manipulators, instruments, pad = self._chains
+        segs = torch.as_tensor(np.ascontiguousarray(segs)).to(self.device, non_blocking=True)
+        return augment_contrastive_views(
+            manipulators, instruments, segs, plan_to(plans, self.device), pad, self.fast
+        )
+
+    def step(self, state: TrainState, segs, plans, sa, sb, la: int, lb: int,
+             sync: bool = False) -> Tuple[TrainState, torch.Tensor]:
+        """One training step on a raw batch; the loss stays on the card."""
+        t0 = time.perf_counter()
+        a_full, b_full = self.augment(segs, plans)
+        if sync:
+            self.synchronize()
+            t1 = time.perf_counter()
+        state, loss = self._step(state, crop_views(a_full, sa, la), crop_views(b_full, sb, lb))
+        if sync:
+            self.synchronize()
+            t2 = time.perf_counter()
+            self.last_split = {"augment_s": t1 - t0, "train_step_s": t2 - t1}
+        return state, loss
+
+    @torch.no_grad()
+    def loss(self, state: TrainState, segs, plans, sa, sb, la: int, lb: int) -> torch.Tensor:
+        """Loss on a (validation) batch: augment, crop, NT-Xent in training
+        mode (batch statistics), no update, BN's running statistics left as
+        they were."""
+        a_full, b_full = self.augment(segs, plans)
+        model = state.model.train()
+        with keep_buffers(model), full_float32():
+            return contrastive_loss_fn(
+                model, crop_views(a_full, sa, la), crop_views(b_full, sb, lb),
+                self.temperature, self.compute_dtype,
+            )

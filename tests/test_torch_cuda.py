@@ -296,3 +296,53 @@ def test_server_round_trip_on_the_card(card, tmp_path):
     got_mix, _ = read_wav(written["written"][0])
     want_mix, _ = read_wav(want[0])
     np.testing.assert_array_equal(got_mix, want_mix)
+
+
+@pytest.mark.cuda
+def test_envelope_kernel_at_the_fast_path_layout(card):
+    """K2 as ``fx/fastpath.py`` launches it: 128 lanes (32 draws of the
+    ``Compressor``'s ranges, each over 2 contents x 2 channels), chunk 16,
+    against a float64 run of the plain version."""
+    from music_mixing_style_transfer_tpu_torch.fx.processors import Compressor
+    from music_mixing_style_transfer_tpu_torch.ops.compressor import alphas
+
+    L, T = 128, 8192
+    p = Compressor().sample(torch.Generator().manual_seed(0), L // 4)
+    rep = lambda v: v.repeat_interleave(4).to(card)  # noqa: E731
+    a_att, a_rel = alphas(rep(p["attack_ms"]), rep(p["release_ms"]), 44100)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((L, T)) * 0.3).astype(np.float32)).to(card)
+    args = (x, rep(p["threshold"]), rep(p["ratio"]), a_att, a_rel, torch.zeros(L, device=card))
+    want, env_want = envelope_reference(*(v.double() for v in args))
+    before = compressor_envelope.launches
+    got, env = compressor_envelope(*args)
+    assert compressor_envelope.launches == before + 1
+    assert (got - want).abs().max().item() <= ENVELOPE_TOL * want.abs().max().item()
+    assert (env - env_want).abs().max().item() <= ENVELOPE_TOL * env_want.abs().max().item() + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, items, pad", [(4096, 2, 512), (2**15 + 4096, 1, 2048)])
+def test_augmentation_card_matches_cpu(card, T, items, pad):
+    """The 4 default instrument chains under one plan on the same int16
+    segments: the card (K2, twice: the eq/comp shuffle's two rounds)
+    against the CPU (plain versions), within 1e-4 of max|cpu|. Below 32768
+    samples the Equaliser scans; from 32768 on it takes its FFT cascade, as
+    training does."""
+    from music_mixing_style_transfer_tpu_torch.fx import make_instrument_manipulators
+    from music_mixing_style_transfer_tpu_torch.fx.chain import plan_to
+    from music_mixing_style_transfer_tpu_torch.train.fused import augment_contrastive_views
+
+    insts = ("drums", "bass", "other", "vocals")
+    man = make_instrument_manipulators()
+    gen = torch.Generator().manual_seed(2)
+    plans = {inst: man[inst].draw(gen, 2 * items) for inst in insts}  # items x K = 2
+    rng = np.random.default_rng(3)
+    segs = torch.from_numpy((rng.standard_normal((4, items, 2, 2, T)) * 5000).astype(np.int16))
+    cpu = augment_contrastive_views(man, insts, segs, plans, pad=pad)
+    before = compressor_envelope.launches
+    got = augment_contrastive_views(man, insts, segs.to(card), plan_to(plans, card), pad=pad)
+    assert compressor_envelope.launches == before + 2
+    for g, c in zip(got, cpu):
+        assert g.shape == c.shape == (4, 2 * items, 2, T - 2 * pad)
+        assert (g.cpu() - c).abs().max().item() <= 1e-4 * c.abs().max().item()

@@ -1,0 +1,243 @@
+"""PyTorch port: the FX engine's processors, FFT convolution and chain
+factories vs the JAX package, on the same numpy inputs, on the CPU.
+
+Each processor's ``apply`` gets the parameters that the JAX package's
+``sample`` drew (torch cannot reproduce JAX's keys), one set per draw, the
+port applying all draws in one call. Tolerances over max|jax|: 1e-5 for the
+float32 elementwise and FFT processors; 1e-4 for the Equaliser below 32768
+samples (five log-depth complex scans in series, each held at 1e-4 in
+``tests/test_torch_biquad.py``) and for the reverbs (a transfer function
+evaluated at 2^17 bins from float32 phases); 5e-4 for the drums' -50 dB
+shelf (see its case); the compressor at
+``tests/test_torch_envelope.py``'s rtol 1e-4, atol 1e-5. The port's
+``sample`` draws from a ``torch.Generator``: its ranges, dtypes and
+frequencies are held against the JAX draws. The factories must build the
+same stage trees, probabilities and structural signatures.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from music_mixing_style_transfer_tpu.fx import factory as jfactory
+from music_mixing_style_transfer_tpu.fx import fastpath as jfast
+from music_mixing_style_transfer_tpu.fx import processors as jp
+from music_mixing_style_transfer_tpu.ops import fftconv as jfft
+from music_mixing_style_transfer_tpu_torch.fx import factory as pfactory
+from music_mixing_style_transfer_tpu_torch.fx import fastpath as pfast
+from music_mixing_style_transfer_tpu_torch.fx import processors as pp
+from music_mixing_style_transfer_tpu_torch.ops import fftconv as pfft
+
+torch.set_num_threads(2)
+SR = 44100
+N = 6  # draws per processor case
+
+
+def rel_close(got, want, rel):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.max(np.abs(want))), 1e-30)
+    err = float(np.max(np.abs(got - want)))
+    assert err <= rel * scale, f"max err {err} > {rel} x {scale}"
+
+
+def signals(rng, n, T):
+    """Stereo noise under slow envelopes, channels of unequal level."""
+    env = np.abs(np.sin(np.linspace(0, rng.uniform(3, 12), T)))
+    x = rng.standard_normal((n, 2, T)) * 0.25 * (0.05 + env)
+    x[:, 1] *= rng.uniform(0.3, 1.0, (n, 1))
+    return x.astype(np.float32)
+
+
+def jax_params(fx, seed, n):
+    """``fx.sample`` on ``n`` JAX keys, as numpy arrays ``[n]``."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    return {k: np.asarray(v) for k, v in jax.vmap(fx.sample)(keys).items()}
+
+
+def to_torch(params):
+    return {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+
+
+def ir_bank(rng, n=3, L=700):
+    decay = np.exp(-np.arange(L) / rng.uniform(60, 200, (n, 1, 1)))
+    ir = rng.standard_normal((n, 2, L)) * decay
+    ir[np.arange(n), :, rng.integers(5, 40, n)] += 1.5  # a peak a few samples in
+    return ir.astype(np.float32)
+
+
+_BANK = ir_bank(np.random.default_rng(5))
+
+# (case, factory(module) -> processor, T, overrides of the sampled params, tolerance)
+CASES = [
+    ("gain", lambda m: m.Gain(), 4096, None, 1e-5),
+    ("pan", lambda m: m.Panner(), 4096, {"law": np.arange(N) % 3}, 1e-5),
+    ("imager", lambda m: m.MidSideImager(), 4096, {"bal": np.linspace(0.1, 1.9, N)}, 1e-5),
+    ("haas", lambda m: m.Haas(SR), 4096, {"left": np.arange(N) % 2 == 0}, 1e-5),
+    ("swap", lambda m: m.SwapChannels(), 4096, {"swap": np.arange(N) % 2 == 0}, 1e-5),
+    ("mono", lambda m: m.Monauralize(), 4096, {"seed_right": np.arange(N) % 2 == 0}, 1e-5),
+    ("distortion", lambda m: m.Distortion(), 2048, {"mode": np.arange(N) % 5}, 1e-5),
+    ("eq_scan", lambda m: m.Equaliser(SR), 4096, None, 1e-4),
+    ("eq_fft", lambda m: m.Equaliser(SR), 32768, None, 1e-5),
+    # the drums' -50 dB shelf: its output is ~20 dB under its input, and the JAX
+    # package's own eager and compiled runs differ by 2.1e-4 of it
+    ("eq_fixed_high_shelf", lambda m: m.Equaliser(
+        SR, bands=("high_shelf",), fixed_params={"high_shelf_gain": -50.0, "high_shelf_freq": 100.0}),
+     4096, None, 5e-4),
+    ("comp", lambda m: m.Compressor(SR), 4096, None, None),
+    ("expander", lambda m: m.Compressor(SR, ratio_range=(1 / 40, 1 / 4)), 4096, None, None),
+    ("algorithmic_reverb", lambda m: m.AlgorithmicReverb(SR), 4096, None, 1e-4),
+    ("algorithmic_reverb_8_combs", lambda m: m.AlgorithmicReverb(SR, reference_compat=False),
+     4096, None, 1e-4),
+    ("conv_reverb", lambda m: m.ConvolutionalReverb(_BANK, SR, wet=0.7, dry=0.3), 4096, None, 1e-4),
+]
+
+
+@pytest.mark.parametrize("case,make,T,override,rel", CASES, ids=[c[0] for c in CASES])
+def test_processor_apply_matches_jax(rng, case, make, T, override, rel):
+    jfx, pfx = make(jp), make(pp)
+    params = jax_params(jfx, 3, N)
+    for k, v in (override or {}).items():
+        params[k] = np.asarray(v).astype(params[k].dtype)
+    x = signals(rng, N, T)
+    want = np.asarray(jax.jit(jax.vmap(jfx.apply))({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x)))
+    got = pfx.apply(to_torch(params), torch.from_numpy(x)).numpy()
+    if rel is None:  # the compressor
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        rel_close(got, want, rel)
+
+
+def test_one_draw_broadcasts_over_items(rng):
+    """A draw's parameters apply to every segment of it: params ``[D]``
+    against ``x [D, I, 2, T]`` equal the same params per item (to the
+    scans' tolerance: their float32 rounding varies with the batch's shape)."""
+    fx = pp.Equaliser(SR)
+    params = to_torch(jax_params(jp.Equaliser(SR), 1, 2))
+    x = torch.from_numpy(signals(rng, 6, 2048).reshape(2, 3, 2, 2048))
+    got = fx.apply(params, x)
+    cs, ps = fx.design(params)  # a carried design is the same filter
+    carried = dict(params, coeffs=cs.movedim(0, -2), poles=ps.movedim(0, -2))
+    assert torch.equal(fx.apply(carried, x), got)
+    assert torch.equal(fx.apply({k: v[1] for k, v in carried.items()}, x[1]),
+                       fx.apply({k: v[1] for k, v in params.items()}, x[1]))
+    for d in range(2):
+        for i in range(3):
+            one = fx.apply({k: v[d] for k, v in params.items()}, x[d, i])
+            rel_close(got[d, i].numpy(), one.numpy(), 1e-4)
+
+
+def test_blockwise_compressor_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pp.Compressor(blockwise=True).apply(pp.Compressor().sample(torch.Generator(), 1),
+                                            torch.zeros(1, 2, 64))
+
+
+def test_fft_convolution_matches_jax(rng):
+    for n in (1, 2, 7, 97, 1000, 4097, 20000, 131073):
+        assert pfft._next_fast_len(n) == jfft._next_fast_len(n)
+    x = rng.standard_normal((3, 2, 1500)).astype(np.float32)
+    h = rng.standard_normal((3, 2, 300)).astype(np.float32)
+    rel_close(pfft.fft_convolve_full(torch.from_numpy(x), torch.from_numpy(h)).numpy(),
+              np.asarray(jfft.fft_convolve_full(jnp.asarray(x), jnp.asarray(h))), 1e-5)
+    for peak in (0, 17, 299, 400):  # clipped into [0, L - 1]
+        got = pfft.convolve_wet(torch.from_numpy(x), torch.from_numpy(h), peak).numpy()
+        want = np.asarray(jfft.convolve_wet(jnp.asarray(x), jnp.asarray(h), jnp.asarray(peak)))
+        rel_close(got, want, 1e-5)
+    full = pfft.convolve_wet(torch.from_numpy(x), torch.from_numpy(h), 0, trim_to_input=False)
+    assert full.shape[-1] == 1500 + 300 - 1
+
+
+SAMPLED = [
+    ("gain", lambda m: m.Gain()),
+    ("pan", lambda m: m.Panner()),
+    ("imager", lambda m: m.MidSideImager()),
+    ("haas", lambda m: m.Haas(SR)),
+    ("swap", lambda m: m.SwapChannels()),
+    ("mono", lambda m: m.Monauralize()),
+    ("distortion", lambda m: m.Distortion()),
+    ("eq", lambda m: m.Equaliser(SR)),
+    ("eq_fixed", lambda m: m.Equaliser(SR, bands=("low_shelf",), fixed_params={
+        "low_shelf_gain": -50.0, "low_shelf_freq": 100.0})),
+    ("comp", lambda m: m.Compressor(SR)),
+    ("algorithmic_reverb", lambda m: m.AlgorithmicReverb(SR)),
+    ("conv_reverb", lambda m: m.ConvolutionalReverb(_BANK, SR)),
+    ("conv_reverb_buckets", lambda m: m.ConvolutionalReverb(_BANK, SR, bucket_bounds=np.array([0, 1, 3]))),
+]
+
+
+@pytest.mark.parametrize("case,make", SAMPLED, ids=[c[0] for c in SAMPLED])
+def test_sample_ranges_and_dtypes_match_jax(case, make):
+    """``sample(gen, n)``: the JAX package's keys, dtype kinds and value
+    sets (for integers of up to 20 values); other draws fill the JAX draws'
+    range (ends within 2% of it) with means within 5% of it; coins within
+    0.05 of JAX's rate."""
+    n = 4000
+    want = jax_params(make(jp), 0, n)
+    fx = make(pp)
+    got = fx.sample(torch.Generator().manual_seed(0), n)
+    if case.startswith("eq"):  # the port's draws carry their designed filters
+        cs, ps = got.pop("coeffs"), got.pop("poles")
+        assert cs.shape == (n, len(fx.bands), 5) and ps.shape == (n, len(fx.bands), 2)
+        want_cs, want_ps = fx.design(got)
+        assert torch.equal(cs.movedim(-2, 0), want_cs) and torch.equal(ps.movedim(-2, 0), want_ps)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k].numpy()
+        assert g.shape == (n,), (k, g.shape)
+        assert g.dtype.kind == ("i" if w.dtype.kind in "iu" else w.dtype.kind), (k, g.dtype, w.dtype)
+        if w.dtype.kind == "b":
+            assert abs(g.mean() - w.mean()) < 0.05, k
+        elif w.dtype.kind in "iu" and len(np.unique(w)) <= 20:
+            assert set(np.unique(g)) == set(np.unique(w)), k
+        else:
+            span = max(float(w.max() - w.min()), 1e-6)
+            assert g.min() >= w.min() - 0.02 * span and g.max() <= w.max() + 0.02 * span, k
+            assert abs(g.min() - w.min()) <= 0.02 * span and abs(g.max() - w.max()) <= 0.02 * span, k
+            assert abs(g.mean() - w.mean()) <= 0.05 * span, k
+
+
+def tree(chain):
+    """A chain's stage tree with every probability and flag."""
+    out = [chain.shuffle, chain.parallel, chain.parallel_weight_factor]
+    for s in chain.stages:
+        fx = tree(s.fx) if s.is_chain else (type(s.fx).__name__, pfast._cfg_value({
+            k: v for k, v in vars(s.fx).items() if k not in ("ir_bank", "peak_idx", "bucket_bounds")
+        }))
+        out.append((s.prob, s.prob_name, s.prob_scale, s.rms_norm, fx))
+    return out
+
+
+@pytest.mark.parametrize("kwargs", [
+    {},
+    {"apply_prob_dict": {"eq": 0.5, "comp": 0.25, "pan": 0.1, "imager": 0.6, "gain": 0.9},
+     "reverb_prob": {"drums": 0.2, "bass": 0.0, "other": 1.0, "vocals": 0.35}},
+])
+def test_factory_chains_match_jax(kwargs):
+    want = jfactory.make_instrument_manipulators(**kwargs)
+    got = pfactory.make_instrument_manipulators(**kwargs)
+    assert list(got) == list(want)
+    for inst in want:
+        assert tree(got[inst]) == tree(want[inst]), inst
+        assert pfast._sig(got[inst]) == jfast._sig(want[inst]), inst
+    assert pfactory.DEFAULT_APPLY_PROB == jfactory.DEFAULT_APPLY_PROB
+    assert pfactory.DEFAULT_REVERB_PROB == jfactory.DEFAULT_REVERB_PROB
+
+
+def test_other_factories_match_jax():
+    names = ["gain", ("eq", 0.4), "comp", ("expander", 0.7, "comp", 0.5), "pan", "imager",
+             "algorithmic", "reverb", "distortion", "swap", "mono"]
+    for kw in ({}, {"shuffle": False, "parallel": True, "parallel_weight_factor": 0.3}):
+        want = jfactory.create_effects_augmentation_chain(names, **kw)
+        got = pfactory.create_effects_augmentation_chain(names, **kw)
+        assert tree(got) == tree(want)
+    with_bank = (jfactory.create_effects_augmentation_chain(["reverb"], ir_bank=_BANK),
+                 pfactory.create_effects_augmentation_chain(["reverb"], ir_bank=_BANK))
+    assert tree(with_bank[1]) == tree(with_bank[0])
+    np.testing.assert_array_equal(with_bank[1].stages[0].fx.peak_idx.numpy(),
+                                  np.asarray(with_bank[0].stages[0].fx.peak_idx))
+    for kw in ({}, {"low_shelf_gain_db": -12.0, "high_shelf_gain_db": 6.0}):
+        assert tree(pfactory.create_reverb_send_chain(**kw)) == tree(jfactory.create_reverb_send_chain(**kw))
+    with pytest.raises(ValueError, match="unknown fx"):
+        pfactory.create_effects_augmentation_chain(["flanger"])

@@ -73,3 +73,18 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
             torch.ones(1, 128), torch.zeros(1, 128), torch.zeros(128)]
     with pytest.raises(ValueError, match="unsupported device"):
         tcn_block(x, *args, d=8)
+
+
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from music_mixing_style_transfer_tpu_torch.train import cli
+    from music_mixing_style_transfer_tpu_torch.train.contrastive import init_contrastive
+    from music_mixing_style_transfer_tpu_torch.train.fused import FusedContrastivePipeline
+    from music_mixing_style_transfer_tpu_torch.train.loop import train_fxencoder
+
+    for entry in (lambda: cli.main(["fxencoder", "--data_dir", str(tmp_path), "--out_dir", str(tmp_path)]),
+                  lambda: train_fxencoder(str(tmp_path), str(tmp_path / "run")),
+                  FusedContrastivePipeline, init_contrastive):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            entry()

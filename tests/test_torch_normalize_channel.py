@@ -198,17 +198,25 @@ def test_comp_match_reads_the_channel_once_through_rows(setup, monkeypatch):
 
 
 def test_kernel_failures_propagate_and_matching_failures_pass_through(setup, monkeypatch):
-    """The compression stage swallows the matching's own failures (here an
-    empty candidate grid: the channel passes unchanged, as JAX's swallowed
-    IndexError leaves it); a failure of the envelope wrapper propagates."""
+    """The compression stage swallows the matching's own failures (an empty
+    candidate grid, or one whose candidate count comes out negative, where
+    ``np.linspace`` raises ``ValueError``: the channel passes unchanged, as
+    the JAX package's swallowed exceptions leave it); a failure of the
+    envelope wrapper propagates."""
     feats, stems = setup
     x = stems["drums"]
-    cfg = dict(comp_max_ratio=5.5)  # half a step below drums' ratio 6: no candidate
-    pn = build(AudioEffectsNormalizer, NormalizationConfig, feats, **cfg)
-    jn = build(JaxNormalizer, JaxNormCfg, feats, **cfg)
-    got = pn.normalize_audio_per_effect(x, "drums", "compression")
-    np.testing.assert_array_equal(got, x)
-    close(got, jn.normalize_audio_per_effect(x, "drums", "compression"))
+    for cfg in (
+        dict(comp_max_ratio=5.5),  # half a step below drums' ratio 6: no candidate
+        dict(comp_max_ratio=4.0),  # ratio count 4 - 6 + 1 = -1
+        dict(comp_min_th=-5.0),    # downward threshold count 2*5 - 1 - 18 = -9
+    ):
+        pn = build(AudioEffectsNormalizer, NormalizationConfig, feats, **cfg)
+        jn = build(JaxNormalizer, JaxNormCfg, feats, **cfg)
+        got = pn.normalize_audio_per_effect(x, "drums", "compression")
+        np.testing.assert_array_equal(got, x)
+        close(got, jn.normalize_audio_per_effect(x, "drums", "compression"))
+    with pytest.raises(pmatch.MatchingError, match="no compression candidate grid"):
+        pmatch.comp_match(torch.from_numpy(x[0]), -60.0, 1.0, 6.0, 10.0, 180.0, max_ratio=4.0)
     with pytest.raises(pmatch.MatchingError):
         pmatch._comp_match_select(torch.from_numpy(x[0]), np.zeros(0, np.float32),
                                   np.zeros(0, np.float32), 20.0, 200.0, -16.0, 1.0, 44100, 75.0, "down")
