@@ -70,10 +70,28 @@ non-zero:
    epoch's synced step (augmentation and train step apart), losses, K2
    launches (the synced step's 2, validation's 2, and the epoch's),
    checkpoints and each run's peak memory.
-11. the ``kernels`` line (launches of the main path, and per path under
+11. train_converter: converter (MixFXcloner) training against the frozen
+   encoder that phase 10 trained. Checks first: K2 at the triplet shape
+   [64, 2^17 + 4096] (16 draws x 2 contents x 2 channels) against a
+   float64 run, timed; ``augment_triplets`` of the 4 default chains, one
+   draw per instrument and item, on the same int16 segments (4 items at
+   2^14 + 4096 and at 2^17 + 4096), the card against the CPU and the fast
+   path against the generic walk, within 1e-4; one converter step on a
+   small TCN and encoder, card vs CPU, TF32 off: the loss and the
+   backward from one cotangent within 1e-4, BN statistics within 1e-5, and
+   the full step's gradients within 5e-4 of each tensor's max, card vs CPU
+   and each device vs a float64 CPU run (the spectral loss's float32
+   conditioning). Then ``train.cli converter --fused`` at
+   full width with phase 10's float32 checkpoint as ``--encoder_ckpt``:
+   the default MixFXcloner, segments of 2^17, 4 items a step (16
+   triplets), 2 epochs of 3 steps in float32, a resume to epoch 3, one
+   epoch in bfloat16 and one of 2 steps with ``--remat``; the same
+   per-epoch figures and each run's peak memory.
+12. the ``kernels`` line (launches of the main path, and per path under
    ``launches_by_path``: each path runs with the counts set to 0 just
-   before it and read just after; K2's ``fastpath`` holds its case at the
-   training shape and the synced step's launches), then the last line ``{"ok": true, "device": {...}}``.
+   before it and read just after; K2's ``fastpath`` and ``triplet`` hold
+   its cases at the two training shapes and their synced steps' launches),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It needs the card and the package beside it: without either it exits
 non-zero and prints no result. It imports nothing of JAX. Every case of
@@ -981,6 +999,15 @@ STEP_TOL = 1e-4                            # contrastive step, card vs CPU: loss
 BIAS_TOL = 1e-3                            # its conv biases ahead of a BN, over the largest gradient
 SMALL_ENC = dict(channels=(8, 16), kernels=(25, 15), strides=(4, 4), dilation=(1, 1))
 INSTS = ("drums", "bass", "other", "vocals")
+TRIPLET_SHAPE = (64, 2**17 + 2 * 2048)    # the converter's K2 launch: 4 insts x 4 items x 2 contents x 2 ch
+TRIPLET_CASES = ((2**14 + 2 * 2048, 4), (2**17 + 2 * 2048, 4))  # augment_triplets card vs CPU: (L_load, items)
+SMALL_TCN = dict(condition_dimension=16, nblocks=2, channel_width=8, kernel_size=7)
+# the converter step's gradients: dL/dpred of the spectral loss's log-magnitude term is
+# ill-conditioned in float32 (near-empty bins), so the full step's float32 gradients, card
+# against CPU and each device against a float64 CPU run, land ~1.1e-4...1.3e-4 of each
+# tensor's max apart (H100 80GB HBM3, 700 W), above STEP_TOL; they are held at CONV_GRAD_TOL,
+# and the converter's backward from one cotangent, card against CPU, at STEP_TOL
+CONV_GRAD_TOL = 5e-4
 
 
 def train_corpus(root: str, rng, files: int = 2, seconds: float = 20.0) -> None:
@@ -997,12 +1024,13 @@ def train_corpus(root: str, rng, files: int = 2, seconds: float = 20.0) -> None:
                           x.T, SR)
 
 
-def fastpath_envelope_case():
-    """K2 at the fast path's shape [128, 2^17 + 4096]: 32 draws of the
-    ``Compressor``'s ranges (threshold -80...-5 dB, attack 1...20 ms, release
-    50...500 ms, ratio 4...40), each repeated over its 2 contents x 2
-    channels as ``fx/fastpath.py`` lays them out, on dequantized int16
-    music; against a float64 run of the plain version."""
+def fastpath_envelope_case(shape=None):
+    """K2 at a training path's shape, by default the contrastive fast
+    path's [128, 2^17 + 4096]: L/4 draws of the ``Compressor``'s ranges
+    (threshold -80...-5 dB, attack 1...20 ms, release 50...500 ms, ratio
+    4...40), each repeated over its 2 contents x 2 channels as
+    ``fx/fastpath.py`` lays them out, on dequantized int16 music; against a
+    float64 run of the plain version."""
     import torch
 
     from music_mixing_style_transfer_tpu_torch.fx.processors import Compressor
@@ -1013,7 +1041,7 @@ def fastpath_envelope_case():
         kernel_chunk,
     )
 
-    L, T = FASTPATH_SHAPE
+    L, T = shape or FASTPATH_SHAPE
     p = Compressor().sample(torch.Generator().manual_seed(SEED), L // 4)
     rep = lambda v: v.to(torch.float32).repeat_interleave(4).cuda()  # noqa: E731
     th, ratio = rep(p["threshold"]), rep(p["ratio"])
@@ -1035,44 +1063,56 @@ def fastpath_envelope_case():
         "compressing_lanes": int(((got - x).abs().amax(-1) > 1e-3).sum()), "tol": ENVELOPE_TOL,
     }
     if not (err <= ENVELOPE_TOL * scale and env_err <= ENVELOPE_TOL * env_scale + 1e-6):
-        raise AssertionError(f"K2 at the fast path's shape is not within its float64 bar: {case}")
+        raise AssertionError(f"K2 at a training path's shape is not within its float64 bar: {case}")
     return case
 
 
-def augmentation_card_vs_cpu(T: int, B: int, seed: int):
+def augmentation_card_vs_cpu(T: int, B: int, seed: int, triplets: bool = False):
     """The 4 default instrument chains under one plan from a seeded
-    generator, on the same int16 segments of ``T`` samples, ``B`` items:
-    the fast path on the card (K2) against the fast path on the CPU (plain
+    generator, on the same int16 segments of ``T`` samples, ``B`` items, as
+    a training path augments them: the contrastive views (K = 2 draws an
+    item) or, with ``triplets``, ``augment_triplets`` (one draw an item).
+    The fast path on the card (K2) against the fast path on the CPU (plain
     versions), and against the generic walk on the card."""
     import torch
 
     from music_mixing_style_transfer_tpu_torch.fx import make_instrument_manipulators
     from music_mixing_style_transfer_tpu_torch.fx.chain import plan_to
     from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
-    from music_mixing_style_transfer_tpu_torch.train.fused import augment_contrastive_views
+    from music_mixing_style_transfer_tpu_torch.train.fused import (
+        augment_contrastive_views,
+        augment_triplets,
+    )
 
-    K, pad = 2, 2048
+    pad = 2048
+    K = 1 if triplets else 2
     man = make_instrument_manipulators()
     gen = torch.Generator().manual_seed(seed)
     plans = {inst: man[inst].draw(gen, B * K) for inst in INSTS}
     segs = torch.from_numpy(synthetic_stems(np.random.default_rng(seed + 1), 4 * B * 2, T)
                             .reshape(4, B, 2, 2, T))
+
+    def augment(s, p, fast=True):
+        if triplets:
+            return augment_triplets(man, INSTS, s, p, pad, T - 2 * pad, fast=fast)
+        return augment_contrastive_views(man, INSTS, s, p, pad, fast=fast)
+
     t0 = time.perf_counter()
-    cpu = augment_contrastive_views(man, INSTS, segs, plans, pad)
+    cpu = augment(segs, plans)
     cpu_s = time.perf_counter() - t0
     card_plans = plan_to(plans, "cuda")
     out = {}
     for name, fast in (("fast", True), ("generic", False)):
         before = compressor_envelope.launches
         t0 = time.perf_counter()
-        views = augment_contrastive_views(man, INSTS, segs.cuda(), card_plans, pad, fast=fast)
+        views = augment(segs.cuda(), card_plans, fast)
         torch.cuda.synchronize()
         out[name] = {"views": views, "s": time.perf_counter() - t0,
                      "launches": compressor_envelope.launches - before}
     scale = max(float(v.abs().max()) for v in cpu)
     err = lambda a, b: max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a, b))  # noqa: E731
     case = {
-        "shape": [4, B * K, 2, T - 2 * pad], "cpu_s": cpu_s,
+        "shape": list(cpu[0].shape), "lanes": 4 * B * K * 2 * 2, "cpu_s": cpu_s,
         "card_fast_s": out["fast"]["s"], "card_generic_s": out["generic"]["s"],
         "launches_fast": out["fast"]["launches"], "launches_generic": out["generic"]["launches"],
         "max_abs_cpu": scale, "card_vs_cpu_err": err(out["fast"]["views"], cpu),
@@ -1124,18 +1164,17 @@ def contrastive_step_card_vs_cpu():
     return case
 
 
-def phase_train_fxencoder():
+def phase_train_fxencoder(tmp: str):
     """Contrastive FXencoder training: K2 at the fast path's shape against
     float64; augmentation card vs CPU; one step card vs CPU; then the
     training CLI at full width (the default FXencoder, segments of 2^17, 4
     items a step, ``--fused``) on a synthetic corpus: 2 epochs of 3 steps in
     float32, a resume to epoch 3, and one epoch in bfloat16. Returns the
-    kernels' launches over the CLI runs, and the fast-path K2 case with the
-    K2 launches of one training step as the CLI's synced steps counted
-    them."""
+    kernels' launches over the CLI runs, the fast-path K2 case with the K2
+    launches of one training step as the CLI's synced steps counted them,
+    and the float32 run's last checkpoint (the converter's frozen encoder).
+    The corpus and the runs stay under ``tmp``."""
     t0 = time.perf_counter()
-    import torch
-
     from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
     from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
     from music_mixing_style_transfer_tpu_torch.train import cli
@@ -1148,37 +1187,17 @@ def phase_train_fxencoder():
     emit("train_fxencoder_checks", t0, fastpath_envelope=k2, augmentation=aug, contrastive_step=step)
 
     steps, items = 3, 4
-    runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        train_corpus(os.path.join(tmp, "corpus"), np.random.default_rng(SEED + 7))
-        tcn_block.launches = compressor_envelope.launches = 0
+    train_corpus(os.path.join(tmp, "corpus"), np.random.default_rng(SEED + 7))
+    tcn_block.launches = compressor_envelope.launches = 0
+    runs = [
+        cli_run(cli, "fxencoder", tmp, name, out, "ckpt", steps, ["--batch_items", str(items), *extra])
         for name, out, extra in (
             ("float32", "f32", ["--epochs", "2"]),
             ("float32_resume", "f32", ["--epochs", "3"]),
             ("bfloat16", "bf16", ["--epochs", "1", "--dtype", "bfloat16"]),
-        ):
-            t_run = time.perf_counter()
-            run_dir = os.path.join(tmp, out)
-            before = compressor_envelope.launches
-            torch.cuda.reset_peak_memory_stats()
-            cli.main(["fxencoder", "--data_dir", os.path.join(tmp, "corpus"), "--out_dir", run_dir,
-                      "--fused", "--steps_per_epoch", str(steps), "--batch_items", str(items), *extra])
-            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-                recs = [json.loads(line) for line in f]
-            new = recs[-(1 if name != "float32" else 2):]
-            runs.append({
-                "run": name, "seconds": time.perf_counter() - t_run,
-                "epochs": [r["epoch"] for r in recs], "losses": [r["loss"] for r in new],
-                "val_losses": [r.get("val_loss") for r in new], "wall": [r["wall"] for r in new],
-                "launches_per_epoch": [r["launches"]["compressor_envelope"] for r in new],
-                "launches_synced_step": [r["launches"]["compressor_envelope_synced_step"] for r in new],
-                "launches_val": [r["launches"]["compressor_envelope_val"] for r in new],
-                "launches": compressor_envelope.launches - before,
-                "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
-                "checkpoints": sorted(os.listdir(os.path.join(run_dir, "ckpt"))),
-            })
-        launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
-        torch.cuda.synchronize()
+        )
+    ]
+    launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
     emit("train_fxencoder", t0, steps_per_epoch=steps, batch_items=items, runs=runs, launches=launches)
     f32, resume, bf16 = runs
     ok = (
@@ -1193,7 +1212,172 @@ def phase_train_fxencoder():
     )
     if not ok:
         raise AssertionError(f"the training CLI failed its checks: {runs}, {launches}")
-    return launches, {**k2, "launches_per_step": runs[0]["launches_synced_step"][0]}
+    ckpt = os.path.join(tmp, "f32", "ckpt", "step_00000003.pt")
+    return launches, {**k2, "launches_per_step": runs[0]["launches_synced_step"][0]}, ckpt
+
+
+def cli_run(cli, model: str, tmp: str, name: str, out: str, ckpt_dir: str, steps: int, extra) -> dict:
+    """One ``train.cli <model> --fused`` run in-process on the corpus under
+    ``tmp``, its peak-memory counter reset just before it: its new
+    ``metrics.jsonl`` records, its K2 launches, its checkpoints, the
+    allocator's cache it started from and its allocation retries (a
+    ``cudaMalloc`` that failed and was retried after the cache was freed)."""
+    import gc
+
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+
+    t_run = time.perf_counter()
+    run_dir = os.path.join(tmp, out)
+    path = os.path.join(run_dir, "metrics.jsonl")
+    seen = 0
+    if os.path.exists(path):
+        with open(path) as f:
+            seen = len(f.readlines())
+    before = compressor_envelope.launches
+    gc.collect()  # the cache is left as it is: train_converter empties it itself
+    reserved = torch.cuda.memory_reserved() / 2**30
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    torch.cuda.reset_peak_memory_stats()
+    cli.main([model, "--data_dir", os.path.join(tmp, "corpus"), "--out_dir", run_dir, "--fused",
+              "--steps_per_epoch", str(steps), *extra])
+    torch.cuda.synchronize()
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    new = recs[seen:]
+    return {
+        "run": name, "seconds": time.perf_counter() - t_run,
+        "epochs": [r["epoch"] for r in recs], "losses": [r["loss"] for r in new],
+        "val_losses": [r.get("val_loss") for r in new], "wall": [r["wall"] for r in new],
+        "launches_per_epoch": [r["launches"]["compressor_envelope"] for r in new],
+        "launches_synced_step": [r["launches"]["compressor_envelope_synced_step"] for r in new],
+        "launches_val": [r["launches"]["compressor_envelope_val"] for r in new],
+        "launches": compressor_envelope.launches - before,
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "reserved_gb_before": reserved,
+        "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries,
+        "checkpoints": sorted(os.listdir(os.path.join(run_dir, ckpt_dir))),
+    }
+
+
+def converter_step_card_vs_cpu():
+    """One ``make_converter_train_step`` on ``SMALL_TCN`` against a frozen
+    ``SMALL_ENC``, from the same weights and triplets, on the card and on
+    the CPU (TF32 off), and on the CPU in float64: the loss card vs CPU
+    within 1e-4; BN's running statistics within 1e-5; each float32
+    gradient within ``CONV_GRAD_TOL`` of its tensor's max, card vs CPU and
+    each device vs float64; and the converter's backward from one
+    cotangent, card vs CPU, every gradient within 1e-4 of its tensor's max."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig, TCNConfig, TrainConfig
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.train.converter import (
+        frozen,
+        init_converter,
+        make_converter_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 8)
+    a1, a2, b2 = (torch.from_numpy((rng.standard_normal((8, 2, 16384)) * 0.2).astype(np.float32))
+                  for _ in range(3))
+    a2 = 0.5 * a1 + 0.5 * a2
+    cot = torch.from_numpy(rng.standard_normal((8, 2, 16384)).astype(np.float32))
+    runs, backward = {}, {}
+    for name, dev, dtype in (("float64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                             ("card", "cuda", torch.float32)):
+        enc = frozen(fast_init(FXencoder(FXencoderConfig(**SMALL_ENC)), seed=SEED).to(dev, dtype))
+        args = [v.to(dev, dtype) for v in (a1, a2, b2)]
+        if name != "float64":  # the converter's backward from one cotangent
+            _, state, _ = init_converter(TCNConfig(**SMALL_TCN), TrainConfig(), seed=SEED, device=dev)
+            with torch.no_grad():
+                emb = enc(args[2])
+            state.model(args[0], emb).backward(cot.to(dev))
+            backward[name] = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+        _, state, _ = init_converter(TCNConfig(**SMALL_TCN), TrainConfig(), seed=SEED, device=dev)
+        state.model.to(dtype)
+        state, loss = make_converter_train_step()(state, enc, *args)
+        runs[name] = (float(loss), {n: p.grad.cpu().double() for n, p in state.model.named_parameters()},
+                      {k: v.cpu().double() for k, v in state.model.state_dict().items() if "running" in k})
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(float(b.double().abs().max()), 1e-30)
+
+    (l64, g64, _), (lc, gc, sc), (lg, gg, sg) = runs["float64"], runs["cpu"], runs["card"]
+    case = {
+        "loss_cpu": lc, "loss_card": lg, "loss_float64": l64, "loss_rel_err": abs(lg - lc) / abs(lc),
+        "grad_card_vs_float64": max(rel(gg[n], g64[n]) for n in g64),
+        "grad_cpu_vs_float64": max(rel(gc[n], g64[n]) for n in g64),
+        "grad_card_vs_cpu": max(rel(gg[n], gc[n]) for n in gc),
+        "grad_card_vs_cpu_worst": max(gc, key=lambda n: rel(gg[n], gc[n])),
+        "backward_card_vs_cpu": max(rel(backward["card"][n], backward["cpu"][n]) for n in gc),
+        "stats_rel_err": max(rel(sg[k], sc[k]) for k in sc),
+        "tol": STEP_TOL, "grad_tol": CONV_GRAD_TOL, "stats_tol": 1e-5,
+    }
+    grads = ("grad_card_vs_float64", "grad_cpu_vs_float64", "grad_card_vs_cpu")
+    if not (case["loss_rel_err"] <= STEP_TOL and case["backward_card_vs_cpu"] <= STEP_TOL
+            and all(case[k] <= CONV_GRAD_TOL for k in grads) and case["stats_rel_err"] <= 1e-5):
+        raise AssertionError(f"the converter step on the card disagrees with the CPU: {case}")
+    return case
+
+
+def phase_train_converter(tmp: str, encoder_ckpt: str):
+    """Converter training: K2 at the triplet shape [64, 2^17 + 4096] against
+    float64, timed; ``augment_triplets`` card vs CPU and fast vs generic;
+    one converter step card vs CPU; then ``train.cli converter --fused`` at
+    full width (the default MixFXcloner against the full-width FXencoder
+    that ``phase_train_fxencoder`` trained, ``encoder_ckpt``; segments of
+    2^17, 4 items a step: 16 triplets) on the same corpus: 2 epochs of 3
+    steps in float32, a resume to epoch 3, one epoch in bfloat16, one epoch
+    of 2 steps with ``--remat``. Returns the kernels' launches over the CLI
+    runs and the triplet K2 case with the launches of one step and of one
+    validation."""
+    t0 = time.perf_counter()
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.train import cli
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    k2 = fastpath_envelope_case(TRIPLET_SHAPE)
+    aug = [augmentation_card_vs_cpu(T, B, SEED + 20 + k, triplets=True)
+           for k, (T, B) in enumerate(TRIPLET_CASES)]
+    with full_float32():
+        step = converter_step_card_vs_cpu()
+    emit("train_converter_checks", t0, triplet_envelope=k2, augmentation=aug, converter_step=step)
+
+    steps, items = 3, 4
+    common = ["--encoder_ckpt", encoder_ckpt, "--segment_length", str(2**17), "--batch_items", str(items)]
+    tcn_block.launches = compressor_envelope.launches = 0
+    runs = [
+        cli_run(cli, "converter", tmp, name, out, "ckpt_conv", n_steps, [*common, *extra])
+        for name, out, n_steps, extra in (
+            ("float32", "conv_f32", steps, ["--epochs", "2"]),
+            ("float32_resume", "conv_f32", steps, ["--epochs", "3"]),
+            ("bfloat16", "conv_bf16", steps, ["--epochs", "1", "--dtype", "bfloat16"]),
+            ("float32_remat", "conv_remat", 2, ["--epochs", "1", "--remat"]),
+        )
+    ]
+    launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+    emit("train_converter", t0, steps_per_epoch=steps, batch_items=items, runs=runs, launches=launches)
+    f32, resume, bf16, remat = runs
+    per_epoch = [2 * steps + 2] * 4 + [2 * 2 + 2]  # 2 a step (the eq/comp shuffle's rounds), 2 a validation
+    ok = (
+        f32["epochs"] == [0, 1] and resume["epochs"] == [0, 1, 2] and bf16["epochs"] == [0]
+        and remat["epochs"] == [0]
+        and all(np.isfinite(v) for r in runs for v in r["losses"] + r["val_losses"])
+        and all(n == 2 for r in runs for n in r["launches_synced_step"] + r["launches_val"])
+        and [n for r in runs for n in r["launches_per_epoch"]] == per_epoch
+        and f32["checkpoints"] == ["step_00000001.pt", "step_00000002.pt"]
+        and resume["checkpoints"] == ["step_00000002.pt", "step_00000003.pt"]
+        and bf16["checkpoints"] == remat["checkpoints"] == ["step_00000001.pt"]
+        and launches["tcn_block"] == 0 and launches["compressor_envelope"] == sum(per_epoch)
+    )
+    if not ok:
+        raise AssertionError(f"the converter training CLI failed its checks: {runs}, {launches}")
+    return launches, {**k2, "launches_per_step": runs[0]["launches_synced_step"][0],
+                      "launches_per_validation": runs[0]["launches_val"][0]}
 
 
 def summary(cases) -> dict:
@@ -1210,7 +1394,7 @@ def summary(cases) -> dict:
 
 
 def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float,
-                       by_path: dict, fastpath: dict):
+                       by_path: dict, fastpath: dict, triplet: dict):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -1279,6 +1463,7 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "final": final,
         "per_channel": {"sweep": times["channel_sweep"], "final": times["channel_final"]},
         "fastpath": fastpath,
+        "triplet": triplet,
     }
     emit("kernels_line", t0, cases=[c for cases in main_cases.values() for c in cases],
          total_s=round(time.perf_counter() - t_all, 3))
@@ -1309,10 +1494,12 @@ def main() -> int:
         "infer_prof": phase_infer_prof(),
     }
     phase_cli()
-    by_path["train_fxencoder"], fastpath = phase_train_fxencoder()
+    with tempfile.TemporaryDirectory() as work:  # the corpus, and the encoder the converter trains against
+        by_path["train_fxencoder"], fastpath, encoder_ckpt = phase_train_fxencoder(work)
+        by_path["train_converter"], triplet = phase_train_converter(work, encoder_ckpt)
     with full_float32():
         kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path,
-                                     fastpath)
+                                     fastpath, triplet)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1,6 +1,6 @@
-"""Training data: MUSDB-style FX-manipulated contrastive pairs, in PyTorch.
+"""Training data: MUSDB-style FX-manipulated pairs and triplets, in PyTorch.
 
-Counterpart of part of ``music_mixing_style_transfer_tpu/data/datasets.py``
+Counterpart of ``music_mixing_style_transfer_tpu/data/datasets.py``
 (reference ``data_loader/data_loader.py``). The host reads raw WAV segments
 and draws the plans; every effect runs batched on the card
 (``train/fused.py``).
@@ -10,6 +10,10 @@ and draws the plans; every effect runs batched on the card
   (A, B) of different content per instrument; ``num_strong_negatives + 1``
   FX draws applied to the same (A, B) pair give the positives (A_k, B_k)
   and the strong negatives (A_j, B_j, j != k).
+- :class:`StyleTransferTripletDataset` (reference
+  ``MUSDB_Dataset_Mixing_Manipulated_Style_Transfer`` :356-539): triplets
+  (A1 raw input, A2 ground truth, B2 reference), one FX draw per
+  (instrument, item) applied to both contents, so A2 and B2 share the style.
 - the random-duration crop plan (reference
   ``Collate_Variable_Length_Segments`` :33-102): lengths in [L/2, L)
   bucketed to multiples of a quantum, starts per item.
@@ -19,9 +23,9 @@ code, so segments and crop plans equal its own bit for bit. Torch cannot
 reproduce JAX's FX keys: each item's FX plan comes from a
 ``torch.Generator`` seeded with ``_seed_for(idx, epoch_seed)`` (the seed
 JAX's key comes from), so a run repeats from its seed. Not ported yet
-(ROADMAP): the on-disk val cache, ``StyleTransferTripletDataset``,
-``generate_contents_w_effects`` and the native C++ wav bank (its segments
-equal the ``wavio`` reads, JAX ``tests/test_native.py``).
+(ROADMAP A3): the on-disk val cache, ``generate_contents_w_effects`` and the
+native C++ wav bank (its segments equal the ``wavio`` reads, JAX
+``tests/test_native.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 
 from ..fx import make_instrument_manipulators
 from ..fx.chain import cat_plans
+from ..fx.fastpath import augment_triplets
 from .wavio import read_wav, wav_length
 
 PAD_B4_MANIPULATION = 2048  # reference data_loader.py:127
@@ -106,9 +111,9 @@ class _MUSDBFiles:
         return out
 
 
-class ContrastivePairDataset:
-    """FXencoder contrastive data: per-instrument raw (A, B) segments and
-    the FX plans of their draws."""
+class _FXDataset:
+    """What both datasets share: the corpus' files, the instruments' FX
+    chains, and the per-item seeds of the segment draws and the FX plans."""
 
     def __init__(
         self,
@@ -116,7 +121,6 @@ class ContrastivePairDataset:
         mode: str = "train",
         instruments: Sequence[str] = ("drums", "bass", "other", "vocals"),
         segment_length: int = 2**17,
-        num_strong_negatives: int = 1,
         apply_prob_dict: Optional[Dict[str, float]] = None,
         reverb_prob: Optional[Dict[str, float]] = None,
         ir_bank: Optional[np.ndarray] = None,
@@ -132,7 +136,6 @@ class ContrastivePairDataset:
         self.mode = mode
         self.instruments = tuple(instruments)
         self.segment_length = segment_length
-        self.num_strong_negatives = num_strong_negatives
         self.fixed_random_seed = fixed_random_seed
         self.sample_rate = sample_rate
         self.pad = PAD_B4_MANIPULATION if pad_b4_manipulation else 0
@@ -140,7 +143,6 @@ class ContrastivePairDataset:
             instruments, apply_prob_dict, reverb_prob, ir_bank, sample_rate
         )
 
-    # ------------------------------------------------------------------
     def _rng_for(self, idx: int, epoch_seed: Optional[int]) -> np.random.Generator:
         if self.mode == "train":
             return np.random.default_rng(np.random.SeedSequence([epoch_seed or 0, idx]))
@@ -151,13 +153,11 @@ class ContrastivePairDataset:
             return (epoch_seed or 0) * 1_000_003 + idx
         return idx * self.fixed_random_seed
 
-    # ------------------------------------------------------------------
-    def batch_plans(self, indices: Sequence[int], epoch_seed: Optional[int] = None) -> Dict[str, dict]:
-        """FX plans of ``indices``: per instrument its chain's plan for
-        ``len(indices) * K`` draws, item-major (item j's K draws at
-        ``j*K : (j+1)*K``). Item j draws every instrument, in order, from a
-        generator seeded with ``_seed_for(j, epoch_seed)``."""
-        K = self.num_strong_negatives + 1
+    def _draw_plans(self, indices: Sequence[int], epoch_seed: Optional[int], K: int) -> Dict[str, dict]:
+        """Per instrument its chain's plan for ``len(indices) * K`` draws,
+        item-major (item j's K draws at ``j*K : (j+1)*K``). Item j draws
+        every instrument, in order, from a generator seeded with
+        ``_seed_for(j, epoch_seed)``."""
         per_inst: Dict[str, list] = {inst: [] for inst in self.instruments}
         for idx in indices:
             gen = torch.Generator().manual_seed(self._seed_for(idx, epoch_seed))
@@ -172,11 +172,12 @@ class ContrastivePairDataset:
         transport: str = "auto",
         plans: Optional[Dict[str, dict]] = None,
     ) -> Tuple[np.ndarray, Dict[str, dict]]:
-        """Host side of the fused train path (``train/fused.py``): raw
+        """Host side of the fused train paths (``train/fused.py``): raw
         segments and FX plans, no card work. Returns ``(segs [n_inst, B,
-        2(content A/B), 2(ch), L_load]`` (int16 when losslessly
-        quantizable, else float32), ``plans)``; ``plans`` is
-        :meth:`batch_plans` of ``indices`` unless given."""
+        2(content A/B), 2(ch), segment_length + 2*pad]`` (int16 when
+        losslessly quantizable, else float32), ``plans)``: per item one
+        generator, and per instrument two segments of different content from
+        it; ``plans`` is ``batch_plans(indices)`` unless given."""
         load_len = self.segment_length + 2 * self.pad
         n_inst, B = len(self.instruments), len(indices)
         segs = np.zeros((n_inst, B, 2, 2, load_len), np.float32)
@@ -187,6 +188,21 @@ class ContrastivePairDataset:
         if plans is None:
             plans = self.batch_plans(indices, epoch_seed)
         return to_transport(segs, transport), plans
+
+
+class ContrastivePairDataset(_FXDataset):
+    """FXencoder contrastive data: per-instrument raw (A, B) segments and
+    the FX plans of their draws."""
+
+    def __init__(self, *args, num_strong_negatives: int = 1, **kwargs):
+        """``_FXDataset``'s arguments, and the strong negatives per item."""
+        super().__init__(*args, **kwargs)
+        self.num_strong_negatives = num_strong_negatives
+
+    def batch_plans(self, indices: Sequence[int], epoch_seed: Optional[int] = None) -> Dict[str, dict]:
+        """FX plans of ``indices``: per instrument its chain's plan for
+        ``len(indices) * K`` draws, item-major (``K = num_strong_negatives + 1``)."""
+        return self._draw_plans(indices, epoch_seed, self.num_strong_negatives + 1)
 
     def collate_plan(
         self,
@@ -228,3 +244,35 @@ class ContrastivePairDataset:
             for i in self.instruments
         ])
         return a, b
+
+
+class StyleTransferTripletDataset(_FXDataset):
+    """Converter training data: (A1 input, A2 ground truth, B2 reference)
+    triplets, raw segments and one FX plan per (instrument, item)."""
+
+    def __len__(self) -> int:
+        inst = self.instruments[-1]
+        return sum(self.files.lengths[inst]) // self.segment_length
+
+    def batch_plans(self, indices: Sequence[int], epoch_seed: Optional[int] = None) -> Dict[str, dict]:
+        """FX plans of ``indices``: per instrument one draw per item, which
+        ``fx/fastpath.py:augment_triplets`` applies to both of the item's
+        contents (A2 and B2 share it)."""
+        return self._draw_plans(indices, epoch_seed, 1)
+
+    def sample_batch(
+        self, indices: Sequence[int], epoch_seed: Optional[int] = None
+    ) -> Dict[str, Dict[str, np.ndarray]]:
+        """The triplets themselves, augmented on the CPU by each
+        instrument's generic chain walk: ``inst -> {'a1','a2','b2'} ->
+        [B, 2, segment_length]``."""
+        segs, plans = self.sample_raw_batch(indices, epoch_seed, transport="float32")
+        views = augment_triplets(
+            self.manipulators, self.instruments, torch.from_numpy(segs), plans, self.pad,
+            self.segment_length, fast=False,
+        )
+        B = len(indices)
+        return {
+            inst: {k: v[i * B : (i + 1) * B].numpy() for k, v in zip(("a1", "a2", "b2"), views)}
+            for i, inst in enumerate(self.instruments)
+        }

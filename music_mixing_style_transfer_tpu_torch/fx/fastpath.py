@@ -28,10 +28,13 @@ stage:
 It consumes the plans of ``AugmentationChain.draw``, one per group, so it
 is a pure evaluation-strategy change, held against the generic walk under
 the same plans in ``tests/test_torch_fastpath.py``.
+
+:func:`augment_triplets`, the converter's augmentation, lives here so that
+both the triplet dataset and the fused trainer can call it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -197,3 +200,44 @@ def eval_manipulators_batched(
     if x.shape[0] != draws_per_inst * len(chains):
         raise ValueError(f"draw batch {x.shape[0]} != {len(chains)} insts x {draws_per_inst}")
     return eval_grouped(chains, [draws_per_inst] * len(chains), [plans[i] for i in instruments], x)
+
+
+def dequant(segs: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 in [-1, 1); float32 passes through."""
+    if segs.dtype == torch.int16:
+        return segs.to(torch.float32) * (1.0 / 32768.0)
+    return segs
+
+
+def augment_triplets(
+    manipulators: Dict[str, AugmentationChain],
+    instruments: Sequence[str],
+    segs: torch.Tensor,          # [n_inst, items, 2(content A/B), 2(ch), L_load]
+    plans: Dict[str, dict],      # per instrument: its chain's plan for items draws
+    pad: int,
+    seg_len: int,
+    fast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The triplets of ``StyleTransferTripletDataset``'s raw batch: per
+    (instrument, item) one FX draw applied to both contents, giving A2
+    (ground truth, content A) and B2 (reference, content B); A1 is content
+    A as it is. Each is trimmed of the pad and clipped to +-1. Returns
+    instrument-major ``[n_inst*items, 2, seg_len]`` stacks (a1, a2, b2).
+
+    ``fast=True`` evaluates all instruments' chains in one batched walk
+    (:func:`eval_manipulators_batched`), the generic walk where it cannot."""
+    x = dequant(segs)
+    n_inst, B = x.shape[0], x.shape[1]
+    sl = slice(pad, pad + seg_len)
+    x = x.reshape((n_inst * B,) + tuple(x.shape[2:]))  # [n_inst*B, 2, 2, L_load]
+    man = None
+    if fast:
+        try:
+            man = eval_manipulators_batched(manipulators, instruments, plans, x, B)
+        except UnsupportedTopology:
+            pass
+    if man is None:
+        man = torch.cat([manipulators[inst].apply(plans[inst], x[i * B : (i + 1) * B])
+                         for i, inst in enumerate(instruments)])
+    return (x[:, 0, :, sl].clamp(-1.0, 1.0), man[:, 0, :, sl].clamp(-1.0, 1.0),
+            man[:, 1, :, sl].clamp(-1.0, 1.0))

@@ -7,28 +7,44 @@ blocks (width 128, kernel 15, dilation ``2**(n % 15)``, non-causal), each
 grouped 1x1 residual, then a 1x1 output conv and a clamp to [-1, 1].
 Receptive field 229,363 samples; 10,547,970 parameters.
 
-Activations between blocks are channels-last ``[B, T, C]``. A block that
+Activations between blocks are channels-last ``[B, T, C]`` (after a block
+that does not take the kernel, a view of channels-first data; the kernel
+takes it contiguous). A block that
 meets the dispatch rule (``TCNBlock.uses_kernel``: eval, k = 15, not causal,
 ``in_ch == out_ch``, 128 channels, dilation >= 8; blocks 3-13 of the full
 config) runs as one fused block through ``ops/cuda/tcn_block.py``: the CUDA
 kernel for a CUDA tensor, its plain version for a CPU tensor. Blocks 0-2
 (block 0 is 2 -> 128 with a grouped residual; dilations 1, 2, 4) stay
-``F.conv1d`` plus elementwise ops, as the JAX package leaves them to XLA.
+``F.conv1d`` plus elementwise ops, as the JAX package leaves them to XLA:
+the channels-first body ``TCNBlock.forward_nch`` that training runs too.
+
+Training mode (``model.train()``) runs the stack channels-first
+``[B, C, T]``, as the JAX package trains it (``channels_last=False``,
+JAX ``train/converter.py:155-163``): every block is cuDNN's conv plus
+elementwise ops, with BN on batch statistics (torch's: momentum 0.1, the
+unbiased variance into the running variance, statistics in float32 for a
+bf16 input); K1 is eval-only. ``remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``, JAX ``nn.remat``), with the
+block's BN buffers put back after the recomputation so they update once a
+forward.
 
 Input ``x [B, 2, T]``, ``cond [B, 2048]`` (or one per block); output
 ``[B, 2, T]``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TCNConfig
 from ..ops.cuda.tcn_block import fused_block_applicable, tcn_block
 from .blocks import LEAKY_SLOPE, BatchNorm1d, FiLM
+from .fx_encoder import keep_buffers
 
 
 class TCNBlock(nn.Module):
@@ -68,28 +84,39 @@ class TCNBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        wr = self.res.weight[:, 0, 0]
+        """Channels-last ``[B, T, in_ch] -> [B, T, out_ch]``, in any memory
+        layout. A block the kernel does not take runs :meth:`forward_nch`
+        and returns a channels-last view of its channels-first result, so a
+        run of such blocks moves no activation between layouts."""
         if self.uses_kernel():
             s, t = self.bn.fold()
             r, b = self.film.rb(cond)
-            w = self.conv1.weight.permute(2, 1, 0)  # [K, in, out]
-            return tcn_block(x, w, s, t, r, b, wr, self.dilation)
+            w, wr = self.conv1.weight.permute(2, 1, 0), self.res.weight[:, 0, 0]  # [K, in, out], [out]
+            return tcn_block(x.contiguous(), w, s, t, r, b, wr, self.dilation)
+        return self.forward_nch(x.transpose(1, 2), cond).transpose(1, 2)
 
-        h = self.conv1(x.transpose(1, 2))  # [B, C, T (+pad if causal)]
+    def forward_nch(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """The block on channels-first ``[B, in_ch, T]`` activations: the
+        training layout (JAX ``tcn.py:110-126``), and the body of every
+        block that does not take the fused kernel."""
+        h = self.conv1(x)
         if self.causal:
             h = h[..., : -self.pad_length]
-        h = self.film(F.leaky_relu(self.bn(h), LEAKY_SLOPE), cond).transpose(1, 2)
-        # grouped 1x1 residual: out channel o reads input channel o // (out/in)
+        h = self.film(F.leaky_relu(self.bn(h), LEAKY_SLOPE), cond)
+        # the residual in h's dtype: under bf16 autocast the stream stays bf16
+        x, wr = x.to(h.dtype), self.res.weight[:, 0].to(h.dtype)  # wr [out, 1]
         if self.out_ch != self.in_ch:
-            x = x.repeat_interleave(self.out_ch // self.in_ch, dim=-1)
-        return (x * wr + h).contiguous()
+            # grouped 1x1 residual: out channel o = i * (out/in) + j reads input channel i
+            return h + (x.unsqueeze(2) * wr.view(self.in_ch, -1, 1)).flatten(1, 2)
+        return h + x * wr
 
 
 class MixFXcloner(nn.Module):
     """TCN-based mixing-style converter (reference ``architectures.py:76-147``)."""
 
-    def __init__(self, config: Optional[TCNConfig] = None):
+    def __init__(self, config: Optional[TCNConfig] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         cfg = self.config = config or TCNConfig()
         blocks = []
         in_ch = cfg.ninputs
@@ -113,11 +140,24 @@ class MixFXcloner(nn.Module):
         self, x: torch.Tensor, cond: Union[torch.Tensor, Sequence[torch.Tensor]]
     ) -> torch.Tensor:
         per_block_cond = isinstance(cond, (list, tuple))
-        h = x.transpose(1, 2).contiguous()  # [B, T, C]
+        if self.training:
+            return self._forward_train(x, cond if per_block_cond else [cond] * len(self.blocks))
+        h = x.transpose(1, 2)  # [B, T, C]
         for n, block in enumerate(self.blocks):
             h = block(h, cond[n] if per_block_cond else cond)
         out = h @ self.output.weight[:, :, 0].T + self.output.bias
         return out.transpose(1, 2).clamp(-1.0, 1.0)  # (architectures.py:145)
+
+    def _forward_train(self, x: torch.Tensor, conds: Sequence[torch.Tensor]) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
+        h = x
+        for block, c in zip(self.blocks, conds):
+            if remat:
+                ctx = (lambda b=block: (contextlib.nullcontext(), keep_buffers(b)))
+                h = checkpoint(block.forward_nch, h, c, use_reentrant=False, context_fn=ctx)
+            else:
+                h = block.forward_nch(h, c)
+        return self.output(h).clamp(-1.0, 1.0)
 
 
 # alias matching the reference class name

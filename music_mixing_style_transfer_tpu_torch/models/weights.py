@@ -7,8 +7,9 @@
   JAX package keeps conv kernels in the torch layout ``[out, in, k]``, so
   this is a renaming, no transposes.
 - ``train_state_from_jax`` carries a JAX ``TrainState``'s parameters and
-  BN statistics into a fresh port ``TrainState`` (new Adam state), so both
-  packages can train from the same weights.
+  BN statistics (an FXencoder's or a MixFXcloner's) into a fresh port
+  ``TrainState`` (new Adam state), so both packages can train from the
+  same weights.
 - ``load_torch_state_dict`` reads a published reference checkpoint
   (``FXencoder_ps.pt``, ``MixFXcloner_ps.pt``): a state dict, possibly
   under a ``"model"`` key and with DDP ``module.`` prefixes
@@ -74,23 +75,28 @@ def mixfxcloner_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     return sd
 
 
-def train_state_from_jax(jax_state, config=None, train_cfg=None, device="cpu"):
+def train_state_from_jax(jax_state, config=None, train_cfg=None, device="cpu", model="fxencoder"):
     """A JAX ``train/state.py:TrainState`` (``params``, ``batch_stats``,
-    ``step``) -> the port's ``TrainState``: an ``FXencoder`` of ``config``
-    holding those weights on ``device`` in training mode, a fresh optimizer
-    (``make_optimizer``) and the step carried over."""
+    ``step``) -> the port's ``TrainState``: an ``FXencoder`` (``model=
+    "fxencoder"``) or a ``MixFXcloner`` (``model="converter"``) of
+    ``config`` holding those weights on ``device`` in training mode, with
+    ``remat`` from ``train_cfg``, a fresh optimizer (``make_optimizer``) and
+    the step carried over."""
     from ..config import TrainConfig
     from ..train.state import TrainState, make_lr_schedule, make_optimizer
     from .fx_encoder import FXencoder
+    from .tcn import MixFXcloner
 
+    cls, to_torch = {
+        "fxencoder": (FXencoder, fxencoder_from_jax),
+        "converter": (MixFXcloner, mixfxcloner_from_jax),
+    }[model]
     tcfg = train_cfg or TrainConfig()
-    model = FXencoder(config, remat=tcfg.remat)
-    model.load_state_dict(fxencoder_from_jax(
-        {"params": jax_state.params, "batch_stats": jax_state.batch_stats}
-    ))
-    model = model.to(device).train()
-    opt = make_optimizer(model.parameters(), tcfg.learning_rate, tcfg.weight_decay)
-    return TrainState(int(jax_state.step), model, opt, make_lr_schedule(tcfg))
+    module = cls(config, remat=tcfg.remat)
+    module.load_state_dict(to_torch({"params": jax_state.params, "batch_stats": jax_state.batch_stats}))
+    module = module.to(device).train()
+    opt = make_optimizer(module.parameters(), tcfg.learning_rate, tcfg.weight_decay)
+    return TrainState(int(jax_state.step), module, opt, make_lr_schedule(tcfg))
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

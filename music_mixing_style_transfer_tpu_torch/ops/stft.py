@@ -3,8 +3,10 @@
 Counterpart of ``music_mixing_style_transfer_tpu/ops/stft.py``: the windows,
 framing, the forward STFT (both ``center`` conventions) and its inverse.
 The FX-normalization DSP uses ``center=False`` with a sqrt-Hann window
-(reference ``utils_data_normalization.py``). Not ported yet: the loss front
-end's helpers (training).
+(reference ``utils_data_normalization.py``); the training losses'
+front end (``losses/spectral.py``) ``center=True`` with a periodic Hann
+window and :func:`magnitude`. Every op here is differentiable (the reflect
+pad is an index gather, framing a strided view, then ``rfft``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,13 @@ def stft(
     if center:
         x = reflect_pad(x, n_fft // 2, n_fft // 2)
     return torch.fft.rfft(frame(x, n_fft, hop_length) * w, n=n_fft, dim=-1)
+
+
+def magnitude(spec: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """``sqrt(|S|^2 + eps)``: the eps inside the root, as the reference
+    front end takes it (``front_back_end.py:80-82``), so the gradient is
+    finite at ``S = 0``."""
+    return torch.sqrt(spec.real**2 + spec.imag**2 + eps)
 
 
 def istft(

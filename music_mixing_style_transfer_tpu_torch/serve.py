@@ -52,7 +52,7 @@ from .utils.logging import get_logger
 
 log = get_logger("serve")
 
-NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP 17: multi-GPU inference)"
+NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP A6: multi-GPU inference)"
 
 
 class QueueFullError(Exception):

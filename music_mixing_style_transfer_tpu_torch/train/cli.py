@@ -3,22 +3,30 @@
 
     python -m music_mixing_style_transfer_tpu_torch.train.cli fxencoder \
         --data_dir /data/musdb_normalized --out_dir runs/enc --epochs 100 --fused
+    python -m music_mixing_style_transfer_tpu_torch.train.cli converter \
+        --data_dir /data/musdb_normalized --out_dir runs/conv --fused \
+        --encoder_ckpt runs/enc/ckpt/step_00000100.pt
 
 Trains on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. ``--data_dir`` holds ``train/`` (and ``val/`` or ``test/``) with
 the MUSDB layout's ``{inst}_normalized_eqcompimagegain_silence_trimmed*.wav``.
+The converter needs the frozen encoder's checkpoint, ``--encoder_ckpt``: a
+published ``FXencoder_ps.pt`` or a ``step_<n>.pt`` that the ``fxencoder``
+model wrote under ``<out_dir>/ckpt/``; the converter's own go under
+``<out_dir>/ckpt_conv/``.
 
-Differences from the JAX CLI: ``--device``; ``--encoder_config``, a JSON
-object of ``FXencoderConfig`` fields (the default is the published
-architecture; smaller ones serve tests and cut-depth runs). ``--no_mesh``
-is accepted and changes nothing: one process on one card (the data-parallel
-trainer is ROADMAP's DDP item). ``--retries`` is accepted and changes
-nothing: the JAX CLI re-executes on a TPU runtime's transient failures
-(a dropped compile service, a preemption), and a CUDA launch failure is no
-such thing (it leaves the process's context unusable and repeats on a
-rerun); resume from the checkpoints with a second run instead. The
-``converter`` model exits with an error until the converter trainer is
-ported (ROADMAP A, item 1).
+Differences from the JAX CLI: ``--device``; ``--encoder_config`` and
+``--converter_config``, JSON objects of ``FXencoderConfig`` and
+``TCNConfig`` fields (the defaults are the published architectures;
+smaller ones serve tests and cut-depth runs; the converter's
+``condition_dimension`` must be the encoder's embedding width); an orbax
+``--encoder_ckpt`` directory raises (ROADMAP: "Orbax checkpoints").
+``--no_mesh`` is accepted and changes nothing: one process on one card (the
+data-parallel trainer is ROADMAP's DDP item). ``--retries`` is accepted and
+changes nothing: the JAX CLI re-executes on a TPU runtime's transient
+failures (a dropped compile service, a preemption), and a CUDA launch
+failure is no such thing (it leaves the process's context unusable and
+repeats on a rerun); resume from the checkpoints with a second run instead.
 """
 from __future__ import annotations
 
@@ -28,13 +36,9 @@ import json
 import os
 import sys
 
-from ..config import FXencoderConfig, TrainConfig
-from .loop import train_fxencoder
-
-CONVERTER_MESSAGE = (
-    "converter training is not yet ported to the PyTorch package (ROADMAP A, item 1: "
-    "train/converter.py, losses/spectral.py, StyleTransferTripletDataset, augment_triplets)"
-)
+from ..config import FXencoderConfig, TCNConfig, TrainConfig
+from ..utils.device import resolve_device
+from .loop import train_converter, train_fxencoder
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,10 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype (parameters, optimizer and losses stay float32)")
     p.add_argument("--remat", action="store_true",
-                   help="recompute the encoder's blocks in the backward pass "
+                   help="recompute the trained model's blocks in the backward pass "
                         "(torch.utils.checkpoint): one block's activations at a time")
     p.add_argument("--encoder_ckpt", type=str, default=None,
-                   help="(converter) the frozen encoder's checkpoint")
+                   help="(converter) the frozen encoder's torch .pt: a published one, or "
+                        "<out_dir>/ckpt/step_<n>.pt of the fxencoder model")
     p.add_argument("--prob_schedule", type=str, default=None,
                    help="(fxencoder) target probs, e.g. 'eq=0.5,comp=0.5'")
     p.add_argument("--save_every", type=int, default=1,
@@ -94,24 +99,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON object of FXencoderConfig fields, e.g. "
                         "'{\"channels\": [8, 16], \"kernels\": [25, 15], \"strides\": [4, 4], "
                         "\"dilation\": [1, 1]}'")
+    p.add_argument("--converter_config", type=str, default=None,
+                   help="(converter) JSON object of TCNConfig fields, e.g. "
+                        "'{\"condition_dimension\": 16, \"nblocks\": 2, \"channel_width\": 8, "
+                        "\"kernel_size\": 7}'")
     return p
+
+
+def _config(cls, text: str):
+    """A ``cls`` dataclass from a JSON object of its fields (lists become
+    tuples), or the default."""
+    if not text:
+        return cls()
+    fields = json.loads(text)
+    return dataclasses.replace(
+        cls(), **{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()}
+    )
 
 
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.model == "converter":
-        p.error(CONVERTER_MESSAGE)
     # fail fast: a missing corpus must not cost a full-size model build
     if not os.path.isdir(args.data_dir):
         p.error(f"--data_dir {args.data_dir}: not a directory")
+    if args.model == "converter" and args.encoder_ckpt is None:
+        p.error("converter training requires --encoder_ckpt")
+    resolve_device(args.device)  # no card: raise before reading any checkpoint
 
-    enc_cfg = None
-    if args.encoder_config:
-        fields = json.loads(args.encoder_config)
-        enc_cfg = dataclasses.replace(
-            FXencoderConfig(), **{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()}
-        )
+    enc_cfg = _config(FXencoderConfig, args.encoder_config)
     tcfg = TrainConfig(
         segment_length=args.segment_length,
         learning_rate=args.learning_rate,
@@ -127,25 +143,31 @@ def main(argv=None) -> int:
         compute_dtype=args.dtype,
         remat=args.remat,
     )
-    target = None
-    if args.prob_schedule:
-        target = {k: float(v) for k, v in (kv.split("=") for kv in args.prob_schedule.split(","))}
-    train_fxencoder(
-        args.data_dir,
-        args.out_dir,
-        encoder_cfg=enc_cfg,
+    common = dict(
         train_cfg=tcfg,
         epochs=args.epochs,
         steps_per_epoch=args.steps_per_epoch,
         batch_items=args.batch_items,
-        prob_schedule_target=target,
         fused=args.fused,
-        collate_quantum=args.collate_quantum,
         save_every=args.save_every,
         val_every=args.val_every,
         val_items=args.val_items,
         device=args.device,
     )
+    if args.model == "converter":
+        from ..models import FXencoder
+        from ..models.checkpoints import load_model_state
+
+        encoder = load_model_state(args.encoder_ckpt, FXencoder(enc_cfg))
+        train_converter(args.data_dir, args.out_dir, encoder,
+                        converter_cfg=_config(TCNConfig, args.converter_config),
+                        ori_weight=args.ori_weight, **common)
+        return 0
+    target = None
+    if args.prob_schedule:
+        target = {k: float(v) for k, v in (kv.split("=") for kv in args.prob_schedule.split(","))}
+    train_fxencoder(args.data_dir, args.out_dir, encoder_cfg=enc_cfg, prob_schedule_target=target,
+                    collate_quantum=args.collate_quantum, **common)
     return 0
 
 

@@ -7,6 +7,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up for the CPU.)
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -346,3 +348,147 @@ def test_augmentation_card_matches_cpu(card, T, items, pad):
     for g, c in zip(got, cpu):
         assert g.shape == c.shape == (4, 2 * items, 2, T - 2 * pad)
         assert (g.cpu() - c).abs().max().item() <= 1e-4 * c.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_triplet_augmentation_card_matches_cpu(card):
+    """``augment_triplets`` of the 4 default instrument chains, one draw per
+    (instrument, item), on the same int16 segments: the card (K2, twice:
+    one launch over 4 instruments x 2 items x 2 contents x 2 channels = 32
+    lanes per round of the eq/comp shuffle) against the CPU, within 1e-4 of
+    max|cpu|; the generic walk on the card (8 launches) too."""
+    from music_mixing_style_transfer_tpu_torch.fx import make_instrument_manipulators
+    from music_mixing_style_transfer_tpu_torch.fx.chain import plan_to
+    from music_mixing_style_transfer_tpu_torch.train.fused import augment_triplets
+
+    insts = ("drums", "bass", "other", "vocals")
+    man = make_instrument_manipulators()
+    gen = torch.Generator().manual_seed(4)
+    plans = {inst: man[inst].draw(gen, 2) for inst in insts}
+    rng = np.random.default_rng(5)
+    segs = torch.from_numpy((rng.standard_normal((4, 2, 2, 2, 5120)) * 5000).astype(np.int16))
+    cpu = augment_triplets(man, insts, segs, plans, 512, 4096)
+    scale = max(c.abs().max().item() for c in cpu)
+    for fast, launches in ((True, 2), (False, 8)):
+        before = compressor_envelope.launches
+        got = augment_triplets(man, insts, segs.to(card), plan_to(plans, card), 512, 4096, fast=fast)
+        assert compressor_envelope.launches == before + launches
+        for g, c in zip(got, cpu):
+            assert g.shape == c.shape == (8, 2, 4096)
+            assert (g.cpu() - c).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_converter_step_card_matches_cpu(card):
+    """One converter step on a small TCN against a small frozen encoder,
+    the same weights and triplets on the card and the CPU (TF32 off): the
+    loss within 1e-4, BN's running statistics within 1e-5, the converter's
+    backward from one cotangent within 1e-4 of each gradient's max, and the
+    full-step gradients within 5e-4 of each tensor's max, card against CPU
+    and each device against a float64 CPU run (the spectral loss's
+    log-magnitude term is ill-conditioned in float32: both devices land
+    ~1.1e-4...1.3e-4 from float64 in ``chip_smoke.py``'s step)."""
+    from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig, TCNConfig, TrainConfig
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.train.converter import (
+        frozen,
+        init_converter,
+        make_converter_train_step,
+    )
+
+    enc_cfg = FXencoderConfig(channels=(8, 16), kernels=(25, 15), strides=(4, 4), dilation=(1, 1))
+    tcn_cfg = TCNConfig(condition_dimension=16, nblocks=2, channel_width=8, kernel_size=7)
+    rng = np.random.default_rng(6)
+    a1, a2, b2, cot = (torch.from_numpy((rng.standard_normal((4, 2, 8192)) * 0.2).astype(np.float32))
+                       for _ in range(4))
+    a2 = 0.5 * a1 + 0.5 * a2
+    runs, backward = {}, {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, dev, dtype in (("float64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                                 ("card", card, torch.float32)):
+            enc = frozen(fast_init(FXencoder(enc_cfg), seed=0).to(dev, dtype))
+            args = [v.to(dev, dtype) for v in (a1, a2, b2)]
+            if name != "float64":
+                _, state, _ = init_converter(tcn_cfg, TrainConfig(), seed=0, device=dev)
+                with torch.no_grad():
+                    emb = enc(args[2])
+                state.model(args[0], emb).backward(cot.to(dev))
+                backward[name] = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+            _, state, _ = init_converter(tcn_cfg, TrainConfig(), seed=0, device=dev)
+            state.model.to(dtype)
+            state, loss = make_converter_train_step()(state, enc, *args)
+            runs[name] = (float(loss), {n: p.grad.cpu().double() for n, p in state.model.named_parameters()},
+                          {k: v.cpu().double() for k, v in state.model.state_dict().items() if "running" in k})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs().max().item() / max(b.double().abs().max().item(), 1e-30)
+
+    (_, g64, _), (lc, gc, sc), (lg, gg, sg) = runs["float64"], runs["cpu"], runs["card"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for n in gc:
+        assert rel(backward["card"][n], backward["cpu"][n]) <= 1e-4, n
+        errs = rel(gg[n], gc[n]), rel(gg[n], g64[n]), rel(gc[n], g64[n])
+        assert max(errs) <= 5e-4, (n, errs)
+    for k in sc:
+        assert rel(sg[k], sc[k]) <= 1e-5, k
+
+
+def remat_after_full_cache(root: str, keep_cache: bool = False) -> dict:
+    """``train_converter`` at full width (the default MixFXcloner and
+    FXencoder, 16 triplets of 2^17 a step, 2 steps an epoch) on a noise
+    corpus under ``root``: a ``remat`` run, then a float32 and a bf16 run
+    that leave the allocator's cache near the card's size, then ``remat``
+    again. Returns each run's synced step, the allocation retries over it
+    (a ``cudaMalloc`` that failed and was retried after the cache was
+    freed) and the cache it started from. ``keep_cache=True`` skips the
+    cache's empty at ``train_converter``'s start, for comparison:
+    ``python -c "import sys; sys.path.insert(0, 'tests'); import
+    test_torch_cuda as t; print(t.remat_after_full_cache('work', True))"``."""
+    import json
+    import os
+    from unittest import mock
+
+    from music_mixing_style_transfer_tpu_torch.config import TrainConfig
+    from music_mixing_style_transfer_tpu_torch.data.wavio import write_wav
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.train.loop import train_converter
+
+    rng = np.random.default_rng(7)
+    for mode in ("train", "val"):
+        os.makedirs(os.path.join(root, mode), exist_ok=True)
+        for inst in ("drums", "bass", "other", "vocals"):
+            write_wav(os.path.join(root, mode, f"{inst}_normalized_eqcompimagegain_silence_trimmed0.wav"),
+                      (rng.standard_normal((44100 * 10, 2)) * 0.2).astype(np.float32))
+    encoder = fast_init(FXencoder(), seed=0)
+    torch.cuda.empty_cache()
+    out = {}
+    for name, cfg in (("remat_fresh", dict(remat=True)), ("float32", {}),
+                      ("bfloat16", dict(compute_dtype="bfloat16")), ("remat_after", dict(remat=True))):
+        run = os.path.join(root, name)
+        reserved = torch.cuda.memory_reserved() / 2**30
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        with mock.patch("torch.cuda.empty_cache") if keep_cache else contextlib.nullcontext():
+            train_converter(root, run, encoder, train_cfg=TrainConfig(**cfg), epochs=1,
+                            steps_per_epoch=2, batch_items=4, fused=True, val_items=1)
+        torch.cuda.synchronize()
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            wall = json.loads(f.readline())["wall"]
+        out[name] = {"synced_step": wall["synced_step"], "reserved_gb_before": round(reserved, 2),
+                     "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries}
+    return out
+
+
+@pytest.mark.cuda
+def test_train_converter_keeps_its_pace_after_a_full_cache(card, tmp_path):
+    """A ``remat`` converter run after float32 and bf16 runs in one process
+    (~60 GB left in the allocator's cache) takes no allocation retries and
+    keeps within 1.25x of a fresh run's synced step."""
+    runs = remat_after_full_cache(str(tmp_path))
+    assert runs["remat_after"]["alloc_retries"] == 0, runs
+    assert runs["remat_after"]["synced_step"] <= 1.25 * runs["remat_fresh"]["synced_step"], runs

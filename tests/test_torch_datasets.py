@@ -1,6 +1,6 @@
-"""PyTorch port: the contrastive pair dataset, the prefetcher, the training
-loop and the training CLI, on the CPU, on a tiny synthetic MUSDB-layout
-corpus.
+"""PyTorch port: the contrastive pair and style-transfer triplet datasets,
+the prefetcher, the training loop and the training CLI, on the CPU, on a
+tiny synthetic MUSDB-layout corpus.
 
 The host-side numpy draws (files, starts, the crop plan) are the JAX
 package's code: segments and crop plans must equal its own bit for bit.
@@ -8,6 +8,13 @@ The FX plans come from ``torch.Generator``s seeded per item, so a run
 repeats from its seed. The loop and the CLI (``--device cpu``) train
 ``SMALL_ENC`` for 2 epochs of 2 steps and resume to a third: finite losses,
 ``metrics.jsonl`` records with the JAX package's keys, keep-N checkpoints.
+
+The triplets (``augment_triplets``): A1 is content A as read, A2 and B2
+one draw applied to both contents; the fast path equals the generic walk
+(2e-5 of max); and one instrument's chain replayed from JAX's keys
+(``test_torch_fastpath.py:jax_plan``) equals JAX's own ``augment_triplets``,
+jitted, 1e-4 of max|jax|, for an eq/comp shuffle (never JAX's 4-instrument
+program: minutes to compile on the CPU).
 """
 import json
 import os
@@ -23,6 +30,7 @@ from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig, TrainC
 from music_mixing_style_transfer_tpu_torch.data import datasets as pds
 from music_mixing_style_transfer_tpu_torch.data.prefetch import BatchPrefetcher
 from music_mixing_style_transfer_tpu_torch.train import cli
+from music_mixing_style_transfer_tpu_torch.train.fused import augment_triplets
 from music_mixing_style_transfer_tpu_torch.train.loop import schedule_probs, train_fxencoder
 
 torch.set_num_threads(2)
@@ -163,7 +171,7 @@ def test_train_fxencoder_trains_resumes_and_keeps_n(musdb_dir, tmp_path):
     assert [r["epoch"] for r in _records(run)] == [0, 1, 2]
 
 
-def test_training_cli_on_the_cpu(musdb_dir, tmp_path):
+def test_training_cli_on_the_cpu(musdb_dir, tmp_path, capsys):
     run = str(tmp_path / "cli")
     argv = ["fxencoder", "--data_dir", musdb_dir, "--out_dir", run, "--epochs", "1",
             "--steps_per_epoch", "1", "--batch_items", "1", "--segment_length", str(SEG),
@@ -176,5 +184,85 @@ def test_training_cli_on_the_cpu(musdb_dir, tmp_path):
     assert os.listdir(os.path.join(run, "ckpt")) == ["step_00000001.pt"]
     with pytest.raises(SystemExit):
         cli.main(["converter", "--data_dir", musdb_dir, "--out_dir", run])
+    assert "converter training requires --encoder_ckpt" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["fxencoder", "--data_dir", str(tmp_path / "absent"), "--out_dir", run])
+
+
+# ---------------------------------------------------------------------------
+# StyleTransferTripletDataset and augment_triplets
+# ---------------------------------------------------------------------------
+def _triplets(musdb_dir, mode="train"):
+    kw = dict(mode=mode, instruments=INSTS, segment_length=SEG)
+    return (jds.StyleTransferTripletDataset(musdb_dir, **kw),
+            pds.StyleTransferTripletDataset(musdb_dir, **kw))
+
+
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_triplet_raw_batch_segments_equal_jax_bit_for_bit(musdb_dir, mode):
+    jd, pd = _triplets(musdb_dir, mode)
+    assert len(pd) == len(jd) > 0
+    for epoch_seed in (None, 4):
+        want, _ = jd.sample_raw_batch([0, 3, 1], epoch_seed=epoch_seed)
+        got, plans = pd.sample_raw_batch([0, 3, 1], epoch_seed=epoch_seed)
+        assert got.dtype == want.dtype == np.int16 and got.shape == (4, 3, 2, 2, SEG + 2 * pd.pad)
+        np.testing.assert_array_equal(got, want)
+        # one draw per (instrument, item); item 3's is its own whatever the batch
+        assert plans["drums"]["stages"][0]["gate"].shape == (3,)
+        alone = pd.batch_plans([3], epoch_seed)
+        assert torch.equal(plans["vocals"]["stages"][3]["fx"]["gain_db"][1:2],
+                           alone["vocals"]["stages"][3]["fx"]["gain_db"])
+    assert pd._seed_for(9, 4) == jd._seed_for(9, 4)
+
+
+def test_triplets_share_one_draw_and_fast_equals_generic(musdb_dir):
+    _, pd = _triplets(musdb_dir)
+    segs, plans = pd.sample_raw_batch([0, 1], epoch_seed=2)
+    x, sl = torch.from_numpy(segs), slice(pd.pad, pd.pad + SEG)
+    generic = augment_triplets(pd.manipulators, INSTS, x, plans, pd.pad, SEG, fast=False)
+    fast = augment_triplets(pd.manipulators, INSTS, x, plans, pd.pad, SEG, fast=True)
+    for g, f in zip(generic, fast):
+        assert g.shape == (8, 2, SEG) and float(g.abs().max()) <= 1.0
+        scale = float(g.abs().max())
+        assert float((f - g).abs().max()) <= 2e-5 * scale
+    # A1: content A as read (instrument-major), trimmed of the pad
+    want_a1 = (x.float() / 32768.0)[:, :, 0, :, sl].reshape(8, 2, SEG)
+    assert torch.equal(generic[0], want_a1.clamp(-1.0, 1.0))
+    assert not torch.equal(generic[1], generic[0])  # the draws changed A2
+    # A2 and B2 come from one draw: equal contents give equal outputs
+    same = x.clone()
+    same[:, :, 1] = same[:, :, 0]
+    for fast_path in (False, True):
+        _, a2, b2 = augment_triplets(pd.manipulators, INSTS, same, plans, pd.pad, SEG, fast=fast_path)
+        assert float((a2 - b2).abs().max()) <= 1e-6 * float(a2.abs().max())
+    # sample_batch is the generic walk of the same raw batch, per instrument
+    batch = pd.sample_batch([0, 1], epoch_seed=2)
+    for i, inst in enumerate(INSTS):
+        for k, v in zip(("a1", "a2", "b2"), generic):
+            np.testing.assert_array_equal(batch[inst][k], v[2 * i : 2 * i + 2].numpy())
+
+
+def test_triplet_chain_replayed_from_jax_keys_equals_jax(musdb_dir):
+    import jax
+
+    from music_mixing_style_transfer_tpu.fx import factory as jfactory
+    from music_mixing_style_transfer_tpu.train.fused import augment_triplets as j_augment
+    from music_mixing_style_transfer_tpu_torch.fx import factory as pfactory
+    from test_torch_fastpath import jax_plan
+
+    names = [("eq", 0.9, "eq"), ("comp", 0.9, "comp")]
+    jchain = jfactory.create_effects_augmentation_chain(names, shuffle=True)
+    pchain = pfactory.create_effects_augmentation_chain(names, shuffle=True)
+    jd, pd = _triplets(musdb_dir)
+    segs, keys = jd.sample_raw_batch([0, 1, 2], epoch_seed=5)
+    inst = "vocals"
+    i = INSTS.index(inst)
+    want = jax.jit(lambda s, k: j_augment({inst: jchain}, (inst,), s, k, jd.pad, SEG, fast=False))(
+        segs[i : i + 1], keys[i : i + 1])
+    plan = jax_plan(jchain, np.asarray(keys[i]))
+    got = augment_triplets({inst: pchain}, (inst,), torch.from_numpy(segs[i : i + 1]), {inst: plan},
+                           pd.pad, SEG)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape == (3, 2, SEG)
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * float(np.abs(w).max())

@@ -78,13 +78,24 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 def test_training_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder
+    from music_mixing_style_transfer_tpu_torch.tools import train_bench
     from music_mixing_style_transfer_tpu_torch.train import cli
     from music_mixing_style_transfer_tpu_torch.train.contrastive import init_contrastive
-    from music_mixing_style_transfer_tpu_torch.train.fused import FusedContrastivePipeline
-    from music_mixing_style_transfer_tpu_torch.train.loop import train_fxencoder
+    from music_mixing_style_transfer_tpu_torch.train.converter import init_converter
+    from music_mixing_style_transfer_tpu_torch.train.fused import (
+        FusedContrastivePipeline,
+        FusedConverterPipeline,
+    )
+    from music_mixing_style_transfer_tpu_torch.train.loop import train_converter, train_fxencoder
 
-    for entry in (lambda: cli.main(["fxencoder", "--data_dir", str(tmp_path), "--out_dir", str(tmp_path)]),
+    run = ["--data_dir", str(tmp_path), "--out_dir", str(tmp_path)]
+    encoder = FXencoder()
+    for entry in (lambda: cli.main(["fxencoder", *run]),
+                  lambda: cli.main(["converter", *run, "--encoder_ckpt", str(tmp_path / "enc.pt")]),
                   lambda: train_fxencoder(str(tmp_path), str(tmp_path / "run")),
-                  FusedContrastivePipeline, init_contrastive):
+                  lambda: train_converter(str(tmp_path), str(tmp_path / "run"), encoder),
+                  lambda: FusedConverterPipeline(encoder), lambda: train_bench.main([]),
+                  FusedContrastivePipeline, init_contrastive, init_converter):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             entry()

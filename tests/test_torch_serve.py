@@ -254,5 +254,5 @@ def test_admission_queue_fifo_ordering():
 
 @pytest.mark.parametrize("argv", [["--data_parallel", "2"], ["--sequence_parallel"]])
 def test_multi_card_options_raise_not_yet_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6: multi-GPU inference"):
         pserve.main(argv + ["--inference_device", "cpu"])
