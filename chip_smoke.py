@@ -87,10 +87,26 @@ non-zero:
    triplets), 2 epochs of 3 steps in float32, a resume to epoch 3, one
    epoch in bfloat16 and one of 2 steps with ``--remat``; the same
    per-epoch figures and each run's peak memory.
-12. the ``kernels`` line (launches of the main path, and per path under
+12. data_tools: ``tools/synth_corpus.py`` writes 2 songs of 30 s in
+   train and in val, ``tools/prepare_musdb.py`` normalizes them on the card
+   (K2 launches and seconds a song), and ``train.cli fxencoder --fused``
+   trains one epoch of 3 steps at full width on the prepared corpus,
+   reading both splits through the native wav bank (``cpp/``, built by
+   ``g++``; the phase fails without it). Then: ``sample_raw_batch`` of 4
+   items through the bank and through ``wavio`` (median of 5 each, the
+   segments byte-equal); ``Compressor(blockwise=True)`` at [16, 2, 2^17 +
+   4096], one K2 launch over its [1056, 12288] blocks, against a float64
+   run (1e-5 of max|float64|) and card vs CPU (1e-5), timed with its bound;
+   ``compand`` and ``lufs_normalize_compand`` at [2, 2^19], the card's
+   chunked scan against a float64 serial run (1e-5); each time-FX
+   processor at [2, 2^19], card vs CPU (1e-4); and
+   ``generate_contents_w_effects(2, 2)`` on the card (the file set, the
+   mixtures within 2.5 LSB of their instruments' clipped sum, K2's
+   launches).
+13. the ``kernels`` line (launches of the main path, and per path under
    ``launches_by_path``: each path runs with the counts set to 0 just
-   before it and read just after; K2's ``fastpath`` and ``triplet`` hold
-   its cases at the two training shapes and their synced steps' launches),
+   before it and read just after; K2's ``fastpath``, ``triplet`` and
+   ``blockwise`` hold its cases at those paths' shapes),
    then the last line ``{"ok": true, "device": {...}}``.
 
 It needs the card and the package beside it: without either it exits
@@ -1253,6 +1269,7 @@ def cli_run(cli, model: str, tmp: str, name: str, out: str, ckpt_dir: str, steps
         "launches_per_epoch": [r["launches"]["compressor_envelope"] for r in new],
         "launches_synced_step": [r["launches"]["compressor_envelope_synced_step"] for r in new],
         "launches_val": [r["launches"]["compressor_envelope_val"] for r in new],
+        "readers": [r["reader"] for r in new],
         "launches": compressor_envelope.launches - before,
         "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
         "reserved_gb_before": reserved,
@@ -1380,6 +1397,290 @@ def phase_train_converter(tmp: str, encoder_ckpt: str):
                       "launches_per_validation": runs[0]["launches_val"][0]}
 
 
+DATA_SONGS, DATA_SECONDS = 2, 30.0           # synth_corpus: songs a split (train, val), seconds each
+BLOCKWISE_SHAPE = (16, 2, 2**17 + 2 * 2048)  # Compressor(blockwise=True): 16 draws x 2 channels
+COMPAND_SHAPE = (2, T_SEG)                   # compand / lufs_normalize_compand
+TIMEFX_SHAPE = (2, T_SEG)                    # each time-FX processor
+COMPAND_TOL = 1e-5                           # the card's chunked scan vs a float64 serial run, over max|float64|
+TIMEFX_TOL = 1e-4                            # time FX card vs CPU, over max|cpu|
+
+
+def blockwise_case():
+    """``Compressor(blockwise=True)`` at ``BLOCKWISE_SHAPE`` (draws of the
+    ``Compressor``'s ranges on dequantized int16 music): one K2 launch over
+    the blocks as lanes, [16 x 2 x 33, 8192 + 4096], held against a float64
+    run of its plain version on those lanes (1e-5 of max|float64|), and the
+    processor against those lanes cropped (1e-5); the whole processor card
+    against CPU (1e-5 of max|cpu|); K2's time and its
+    bytes bound at the lanes' shape, and the processor's time. Returns the
+    case and the path's launches (the one apply's)."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.fx.processors import Compressor
+    from music_mixing_style_transfer_tpu_torch.ops import compressor as comp
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import (
+        compressor_envelope,
+        envelope_reference,
+        kernel_chunk,
+    )
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+
+    B, C, T = BLOCKWISE_SHAPE
+    fx = Compressor(blockwise=True)
+    params = fx.sample(torch.Generator().manual_seed(SEED + 30), B)
+    x = torch.from_numpy(synthetic_stems(np.random.default_rng(SEED + 31), B, T)).float() / 32768.0
+    card_params = {k: v.cuda() for k, v in params.items()}
+    xc = x.cuda()
+    lanes, launch = {}, comp.compressor_envelope
+
+    def capture(xl, *args):  # the lanes the blockwise path hands to the wrapper
+        lanes["args"] = (xl, *args)
+        return launch(xl, *args)
+
+    comp.compressor_envelope = capture
+    try:
+        tcn_block.launches = compressor_envelope.launches = 0  # the path: one apply
+        got = fx.apply(card_params, xc)
+        torch.cuda.synchronize()
+        path = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+    finally:
+        comp.compressor_envelope = launch
+    launches = path["compressor_envelope"]
+    xl, *p = lanes["args"]
+    L, W = xl.shape
+    want, env_want = envelope_reference(*(v.double() for v in (xl, *p)))
+    kern, env = compressor_envelope(xl, *p)
+    t0 = time.perf_counter()
+    cpu = fx.apply(params, x)
+    cpu_s = time.perf_counter() - t0
+    scale = want.abs().max().item()
+    err = (kern.double() - want).abs().max().item()
+    env_err = (env.double() - env_want).abs().max().item()
+    card_err = (got.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
+    # the processor's float64 yardstick: the float64 lanes cropped as the path crops them
+    want_y = want[:, -4096:].reshape(B * C, -1)[:, :T].reshape(B, C, T)
+    y_err = (got.double() - want_y).abs().max().item() / want_y.abs().max().item()
+    ms = cuda_time_ms(lambda: compressor_envelope(xl, *p), 10)
+    apply_ms = cuda_time_ms(lambda: fx.apply(card_params, xc), 5)
+    case = {
+        "shape": [B, C, T], "lanes": [L, W], "chunk": kernel_chunk(L), "launches_per_apply": launches,
+        "ms": ms, **envelope_bound(L, W), "apply_ms": apply_ms, "cpu_apply_s": cpu_s,
+        "max_abs_err": err, "max_rel_err_float64": err / scale, "env_err": env_err,
+        "card_vs_cpu_rel_err": card_err, "processor_vs_float64_rel_err": y_err, "tol": ENVELOPE_TOL,
+    }
+    if not (launches == 1 and (L, W) == (B * C * -(-T // 4096), 8192 + 4096)
+            and err <= ENVELOPE_TOL * scale and env_err <= ENVELOPE_TOL * env_want.abs().max().item() + 1e-6
+            and card_err <= ENVELOPE_TOL and y_err <= ENVELOPE_TOL):
+        raise AssertionError(f"the blockwise compressor failed its checks: {case}")
+    return case, path
+
+
+def compand_cases():
+    """``compand`` and ``lufs_normalize_compand`` at ``COMPAND_SHAPE``: the
+    card (its chunked scan) against a float64 serial run on the CPU within
+    1e-5 of max|float64|, and the card's time."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.ops.compressor import compand
+    from music_mixing_style_transfer_tpu_torch.ops.loudness import lufs_normalize_compand
+
+    x = torch.from_numpy(synthetic_stems(np.random.default_rng(SEED + 32), 1, COMPAND_SHAPE[1])[0])
+    x = x.float() / 32768.0
+    xc = x.cuda()
+    cases = []
+    for name, fn in (("compand", compand),
+                     ("lufs_normalize_compand", lambda y: lufs_normalize_compand(y, SR, -14.0))):
+        t0 = time.perf_counter()
+        want = fn(x.double())
+        cpu_s = time.perf_counter() - t0
+        got = fn(xc)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got.cpu().double() - want).abs().max().item()
+        case = {"name": name, "shape": list(COMPAND_SHAPE), "ms": cuda_time_ms(lambda: fn(xc), 3),
+                "cpu_float64_s": cpu_s, "max_abs_err": err, "max_rel_err_float64": err / scale,
+                "changed": (got.cpu() - x).abs().max().item(), "tol": COMPAND_TOL}
+        cases.append(case)
+        if not (got.dtype == torch.float32 and err <= COMPAND_TOL * scale and case["changed"] > 1e-3):
+            raise AssertionError(f"{name} on the card failed its checks: {case}")
+    return cases
+
+
+def timefx_cases():
+    """Each time-FX processor at ``TIMEFX_SHAPE`` with one parameter set
+    drawn from a seeded numpy generator (redrawn past the identity), card
+    against CPU within 1e-4 of max|cpu|; ``Bend`` at its drawn segments;
+    the card's time."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.fx import timefx
+
+    C, T = TIMEFX_SHAPE
+    x = torch.from_numpy(synthetic_stems(np.random.default_rng(SEED + 33), 1, T)[0]).float() / 32768.0
+    xc = x.cuda()
+    draw = np.random.default_rng(SEED + 34)
+    cases = []
+    for fx in (timefx.PitchShift(), timefx.TimeStretch(), timefx.PlaybackSpeed(), timefx.Bend()):
+        while True:
+            params = fx.sample_host(draw, T) if isinstance(fx, timefx.Bend) else fx.sample_host(draw)
+            if params.get("steps", params.get("factor")) not in (0.0, 1.0):
+                break
+        t0 = time.perf_counter()
+        cpu = fx.apply(params, x)
+        cpu_s = time.perf_counter() - t0
+        got = fx.apply(params, xc).cpu()
+        err = (got - cpu).abs().max().item() / cpu.abs().max().item()
+        case = {"name": fx.name, "shape": [C, T],
+                "params": {k: np.asarray(v).tolist() for k, v in params.items()},
+                "ms": cuda_time_ms(lambda: fx.apply(params, xc), 2), "cpu_s": cpu_s,
+                "card_vs_cpu_rel_err": err, "tol": TIMEFX_TOL}
+        cases.append(case)
+        if not (got.shape == cpu.shape == (C, T) and err <= TIMEFX_TOL):
+            raise AssertionError(f"{fx.name} on the card disagrees with the CPU: {case}")
+    return cases
+
+
+def host_read_case(corpus: str):
+    """``sample_raw_batch`` of the default 4-item batch of 2^17-sample
+    segments from the prepared train split, through the native wav bank and
+    through ``wavio`` (median of 5 each, host clock); the segments
+    byte-equal; the plan draw's share apart (``batch_plans``)."""
+    from music_mixing_style_transfer_tpu_torch.data.datasets import ContrastivePairDataset
+
+    out, segs = {}, {}
+    for reader, use_native in (("native", True), ("wavio", False)):
+        ds = ContrastivePairDataset(corpus, mode="train", use_native=use_native)
+        assert ds.files.reader == reader, (reader, ds.files.reader)
+        times = []
+        for rep in range(5):
+            t0 = time.perf_counter()
+            segs[reader], _ = ds.sample_raw_batch(list(range(4)), epoch_seed=rep)
+            times.append(time.perf_counter() - t0)
+        plans = []
+        for rep in range(5):
+            t0 = time.perf_counter()
+            ds.batch_plans(list(range(4)), epoch_seed=rep)
+            plans.append(time.perf_counter() - t0)
+        out[reader] = {"sample_raw_batch_s": float(np.median(times)), "all_s": times,
+                       "batch_plans_s": float(np.median(plans))}
+    same = segs["native"].dtype == segs["wavio"].dtype and segs["native"].tobytes() == segs["wavio"].tobytes()
+    out.update(shape=list(segs["native"].shape), dtype=str(segs["native"].dtype), byte_equal=same)
+    if not same:
+        raise AssertionError(f"the native bank's segments differ from wavio's: {out}")
+    return out
+
+
+def generate_contents_case(corpus: str, out_dir: str):
+    """``generate_contents_w_effects(2, 2)`` on the card from the prepared
+    train split: the JAX package's file set, each mixture the clipped sum of
+    its instruments' files within 2.5 LSB (five files, each rounded once by
+    at most half an LSB), and K2's launches."""
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.data.datasets import ContrastivePairDataset
+    from music_mixing_style_transfer_tpu_torch.data.wavio import read_wav
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+
+    ds = ContrastivePairDataset(corpus, mode="train")
+    before = compressor_envelope.launches
+    t0 = time.perf_counter()
+    ds.generate_contents_w_effects(2, 2, out_dir, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = compressor_envelope.launches - before
+    tags = [f"A{c}{e}" for c in "AB" for e in (1, 2)]
+    want = {f"{i}_ori_{c}.wav" for i in INSTS for c in (0, 1)}
+    want |= {f"{i}_{t}.wav" for i in INSTS for t in tags} | {f"mixture_{t}.wav" for t in tags}
+    files = set(os.listdir(out_dir))
+    worst = 0.0
+    for t in tags:
+        mix, _ = read_wav(os.path.join(out_dir, f"mixture_{t}.wav"))
+        parts = sum(read_wav(os.path.join(out_dir, f"{i}_{t}.wav"))[0].astype(np.float64) for i in INSTS)
+        worst = max(worst, float(np.abs(mix - np.clip(parts, -1, 1)).max()) * 32768)
+    case = {"files": len(files), "file_set_ok": files == want, "mixture_max_err_lsb": worst,
+            "launches": launches, "seconds": seconds}
+    if not (files == want and worst <= 2.5 and launches == 2 * len(INSTS)):
+        raise AssertionError(f"generate_contents_w_effects failed its checks: {case}")
+    return case
+
+
+def phase_data_tools(tmp: str):
+    """The data tools on the card: ``tools/synth_corpus.py`` (2 songs of
+    30 s in train and in val), ``tools/prepare_musdb.py`` normalizing them
+    on the card (K2 launches and seconds a song), ``train.cli fxencoder
+    --fused`` for one epoch of 3 steps at full width on the prepared corpus
+    through the native wav bank (both splits, or the phase fails); the host
+    read, bank against ``wavio``; ``Compressor(blockwise=True)``;
+    ``compand`` and ``lufs_normalize_compand``; the time FX;
+    ``generate_contents_w_effects``. Returns K2's case at the blockwise
+    shape and the launches of each path (the counts set to 0 just before
+    it and read just after)."""
+    t0 = time.perf_counter()
+    import logging
+
+    from music_mixing_style_transfer_tpu_torch import native
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.tools import prepare_musdb, synth_corpus
+    from music_mixing_style_transfer_tpu_torch.train import cli
+
+    if not native.available():
+        raise AssertionError("the native library (cpp/ via g++) did not build on this machine")
+    raw, corpus = os.path.join(tmp, "raw"), os.path.join(tmp, "corpus")
+    t_synth = time.perf_counter()
+    for split, seed in (("train", SEED + 50), ("val", SEED + 60)):
+        synth_corpus.main(["--output_dir", raw, "--n_songs", str(DATA_SONGS), "--seconds",
+                           str(DATA_SECONDS), "--split", split, "--seed", str(seed)])
+    synth_s = time.perf_counter() - t_synth
+
+    by_path = {}
+
+    def counted(name, fn):
+        tcn_block.launches = compressor_envelope.launches = 0
+        out = fn()
+        by_path[name] = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+        return out
+
+    songs = []  # the song_stats of prepare_musdb's per-song log records
+    handler = logging.Handler()
+    handler.emit = lambda r: songs.append(r.song_stats) if hasattr(r, "song_stats") else None
+    logger = logging.getLogger("prepare_musdb")
+    logger.addHandler(handler)
+    try:
+        t_prep = time.perf_counter()
+        rc = counted("prepare_musdb", lambda: prepare_musdb.main(
+            ["--musdb_root", raw, "--output_dir", corpus, "--splits", "train", "val"]))
+        prep_s = time.perf_counter() - t_prep
+    finally:
+        logger.removeHandler(handler)
+    run = counted("train_fxencoder_prepared", lambda: cli_run(
+        cli, "fxencoder", tmp, "prepared_corpus", "prepared_run", "ckpt", 3,
+        ["--batch_items", "4", "--epochs", "1"]))
+    emit("data_tools_corpus", t0, synth_corpus_s=synth_s, prepare_musdb_s=prep_s, songs=songs,
+         train=run, launches=dict(by_path))
+    prepared = sorted(os.listdir(os.path.join(corpus, "train")))
+    ok = (rc == 0 and len(songs) == 2 * DATA_SONGS
+          and all(s["launches"] > 0 for s in songs)
+          and len(prepared) == len(INSTS) * DATA_SONGS
+          and run["readers"] == [{"train": "native", "val": "native"}]
+          and all(np.isfinite(v) for v in run["losses"] + run["val_losses"])
+          and by_path["prepare_musdb"]["tcn_block"] == 0
+          and by_path["train_fxencoder_prepared"]["compressor_envelope"] == 2 * 3 + 2)
+    if not ok:
+        raise AssertionError(f"synth_corpus -> prepare_musdb -> train.cli failed its checks: "
+                             f"{rc}, {songs}, {prepared}, {run}, {by_path}")
+
+    host = host_read_case(corpus)
+    blockwise, by_path["blockwise"] = blockwise_case()
+    compand = compand_cases()
+    timefx = timefx_cases()
+    contents = counted("generate_contents", lambda: generate_contents_case(
+        corpus, os.path.join(tmp, "contents")))
+    emit("data_tools", t0, host_read=host, blockwise=blockwise, compand=compand, timefx=timefx,
+         generate_contents=contents, launches=by_path)
+    return blockwise, by_path
+
+
 def summary(cases) -> dict:
     """Per-launch numbers of ``cases`` (one dtype, one shape, every
     dilation): the largest error, and times and bounds averaged."""
@@ -1394,7 +1695,7 @@ def summary(cases) -> dict:
 
 
 def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env, t_all: float,
-                       by_path: dict, fastpath: dict, triplet: dict):
+                       by_path: dict, fastpath: dict, triplet: dict, blockwise: dict):
     """Per-launch numbers at the main path's shape [4, 2^19, 128], averaged
     over its 11 dilations: float32 (the default dtype) in the entry,
     bfloat16 nested beside it, and both at the interpolation dispatch's
@@ -1464,6 +1765,7 @@ def phase_kernels_line(launches: int, interp_cases, f64, env_launches: int, env,
         "per_channel": {"sweep": times["channel_sweep"], "final": times["channel_final"]},
         "fastpath": fastpath,
         "triplet": triplet,
+        "blockwise": blockwise,
     }
     emit("kernels_line", t0, cases=[c for cases in main_cases.values() for c in cases],
          total_s=round(time.perf_counter() - t_all, 3))
@@ -1497,9 +1799,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:  # the corpus, and the encoder the converter trains against
         by_path["train_fxencoder"], fastpath, encoder_ckpt = phase_train_fxencoder(work)
         by_path["train_converter"], triplet = phase_train_converter(work, encoder_ckpt)
+    with tempfile.TemporaryDirectory() as work:  # the raw and the prepared corpus
+        blockwise, data_paths = phase_data_tools(work)
+    by_path.update(data_paths)
     with full_float32():
         kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path,
-                                     fastpath, triplet)
+                                     fastpath, triplet, blockwise)
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -19,13 +19,19 @@ and draws the plans; every effect runs batched on the card
   bucketed to multiples of a quantum, starts per item.
 
 The host-side numpy draws (file, start, crop plan) are the JAX package's
-code, so segments and crop plans equal its own bit for bit. Torch cannot
+code, so segments and crop plans equal its own bit for bit. Segments are
+read through the native C++ wav bank (``data/native_loader.py``: headers
+parsed once, a batch in one call on a thread pool) where the library
+builds, else through ``wavio``; both give the same bytes. Torch cannot
 reproduce JAX's FX keys: each item's FX plan comes from a
 ``torch.Generator`` seeded with ``_seed_for(idx, epoch_seed)`` (the seed
-JAX's key comes from), so a run repeats from its seed. Not ported yet
-(ROADMAP A3): the on-disk val cache, ``generate_contents_w_effects`` and the
-native C++ wav bank (its segments equal the ``wavio`` reads, JAX
-``tests/test_native.py``).
+JAX's key comes from), so a run repeats from its seed.
+
+A dataset's ``device`` (the card unless the caller asks for the CPU) is
+where ``sample_batch`` and ``generate_contents_w_effects`` run the chains;
+the raw batches for the fused trainers stay on the host. In ``val`` mode
+with a ``val_cache_dir``, the contrastive views of an item are written to
+WAV once and read back after (reference :202-220).
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ import numpy as np
 import torch
 
 from ..fx import make_instrument_manipulators
-from ..fx.chain import cat_plans
-from ..fx.fastpath import augment_triplets
-from .wavio import read_wav, wav_length
+from ..fx.chain import cat_plans, plan_to
+from ..fx.fastpath import augment_contrastive_views, augment_triplets
+from ..utils.device import resolve_device
+from .native_loader import open_wav_bank
+from .wavio import read_wav, wav_length, write_wav
 
 PAD_B4_MANIPULATION = 2048  # reference data_loader.py:127
 
@@ -65,7 +73,11 @@ def to_transport(segs: np.ndarray, transport: str = "auto") -> np.ndarray:
 
 class _MUSDBFiles:
     """Per-instrument file lists with duration-ratio sampling weights
-    (reference ``data_loader.py:135-146``), read through ``wavio``."""
+    (reference ``data_loader.py:135-146``). Segments come from the native
+    wav bank (``cpp/mstio.cc``) when ``use_native`` and the library builds,
+    else from ``wavio``, with the same bytes either way; ``reader`` says
+    which (``"native"`` or ``"wavio"``). The bank checks every file's rate
+    against ``sample_rate`` up front, as ``wavio`` does at each read."""
 
     def __init__(
         self,
@@ -73,10 +85,13 @@ class _MUSDBFiles:
         instruments: Sequence[str],
         use_normalized: bool = True,
         normalization_order: str = "eqcompimagegain",
+        use_native: bool = True,
+        sample_rate: int = 44100,
     ):
         self.paths: Dict[str, List[str]] = {}
         self.weights: Dict[str, np.ndarray] = {}
         self.lengths: Dict[str, List[int]] = {}
+        self.banks: Dict[str, object] = {}
         for inst in instruments:
             if use_normalized:
                 pattern = f"{data_dir}/{inst}_normalized_{normalization_order}_silence_trimmed*.wav"
@@ -85,10 +100,18 @@ class _MUSDBFiles:
             paths = sorted(globlib.glob(pattern))
             if not paths:
                 raise FileNotFoundError(f"no files match {pattern}")
-            lengths = [wav_length(p) for p in paths]
+            bank = open_wav_bank(paths) if use_native else None
+            if bank is not None and sample_rate is not None:
+                for p, rate in zip(paths, bank.rates):
+                    if rate != sample_rate:
+                        raise ValueError(f"{p}: sample rate {rate} != expected {sample_rate}")
+            lengths = bank.frames if bank is not None else [wav_length(p) for p in paths]
             self.paths[inst] = paths
-            self.lengths[inst] = lengths
+            self.lengths[inst] = list(lengths)
             self.weights[inst] = np.asarray(lengths, np.float64) / sum(lengths)
+            if bank is not None:
+                self.banks[inst] = bank
+        self.reader = "native" if len(self.banks) == len(self.paths) else "wavio"
 
     def sample_segments(
         self, rng: np.random.Generator, inst: str, n: int, duration: int
@@ -102,6 +125,9 @@ class _MUSDBFiles:
             else 0
             for fi in idxs
         ]
+        bank = self.banks.get(inst)
+        if bank is not None:
+            return bank.read_segments(idxs, starts, duration)
         out = np.zeros((n, 2, duration), np.float32)
         for i, (fi, start) in enumerate(zip(idxs, starts)):
             path = self.paths[inst][fi]
@@ -129,10 +155,14 @@ class _FXDataset:
         fixed_random_seed: int = 777,
         sample_rate: int = 44100,
         pad_b4_manipulation: bool = True,
+        use_native: bool = True,
+        device="cuda",
     ):
         self.files = _MUSDBFiles(
-            os.path.join(data_dir, mode), instruments, use_normalized, normalization_order
+            os.path.join(data_dir, mode), instruments, use_normalized, normalization_order,
+            use_native=use_native, sample_rate=sample_rate,
         )
+        self._device = device
         self.mode = mode
         self.instruments = tuple(instruments)
         self.segment_length = segment_length
@@ -142,6 +172,12 @@ class _FXDataset:
         self.manipulators = make_instrument_manipulators(
             instruments, apply_prob_dict, reverb_prob, ir_bank, sample_rate
         )
+
+    @property
+    def device(self) -> torch.device:
+        """Where the chains run (resolved at first use: the raw batches
+        need no card)."""
+        return resolve_device(self._device)
 
     def _rng_for(self, idx: int, epoch_seed: Optional[int]) -> np.random.Generator:
         if self.mode == "train":
@@ -194,10 +230,45 @@ class ContrastivePairDataset(_FXDataset):
     """FXencoder contrastive data: per-instrument raw (A, B) segments and
     the FX plans of their draws."""
 
-    def __init__(self, *args, num_strong_negatives: int = 1, **kwargs):
-        """``_FXDataset``'s arguments, and the strong negatives per item."""
+    def __init__(self, *args, num_strong_negatives: int = 1, val_cache_dir: Optional[str] = None,
+                 **kwargs):
+        """``_FXDataset``'s arguments, the strong negatives per item, and
+        the directory of the val mode's on-disk cache (none by default)."""
         super().__init__(*args, **kwargs)
         self.num_strong_negatives = num_strong_negatives
+        self.val_cache_dir = val_cache_dir
+
+    def sample_batch(
+        self, indices: Sequence[int], epoch_seed: Optional[int] = None
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """The manipulated views of ``indices``: two dicts (A, B), ``inst ->
+        [len(indices) * K, 2, segment_length]``, an item's K views adjacent
+        (the reference collate's layout), the pad trimmed, clipped to +-1.
+        The raw batch and its plans (:meth:`sample_raw_batch`) go through
+        the chains on the dataset's device in one batched walk. Items in the
+        val cache are read from it; the others are written to it."""
+        K = self.num_strong_negatives + 1
+        views = {idx: self._load_val_cache(idx) for idx in indices}
+        todo = [idx for idx in indices if views[idx] is None]
+        if todo:
+            dev = self.device
+            segs, plans = self.sample_raw_batch(todo, epoch_seed, transport="float32")
+            man_a, man_b = augment_contrastive_views(
+                self.manipulators, self.instruments, torch.from_numpy(segs).to(dev),
+                plan_to(plans, dev), self.pad,
+            )  # [n_inst, len(todo) * K, 2, L] each
+            man_a, man_b = man_a.cpu().numpy(), man_b.cpu().numpy()
+            for j, idx in enumerate(todo):
+                views[idx] = {
+                    inst: [(man_a[i, j * K + k], man_b[i, j * K + k]) for k in range(K)]
+                    for i, inst in enumerate(self.instruments)
+                }
+                self._save_val_cache(idx, views[idx])
+        return tuple(
+            {inst: np.stack([views[idx][inst][k][side] for idx in indices for k in range(K)])
+             for inst in self.instruments}
+            for side in (0, 1)
+        )
 
     def batch_plans(self, indices: Sequence[int], epoch_seed: Optional[int] = None) -> Dict[str, dict]:
         """FX plans of ``indices``: per instrument its chain's plan for
@@ -246,6 +317,80 @@ class ContrastivePairDataset(_FXDataset):
         return a, b
 
 
+    def _val_cache_path(self, idx: int) -> Optional[str]:
+        if self.mode != "val" or not self.val_cache_dir:
+            return None
+        return os.path.join(self.val_cache_dir, str(idx))
+
+    def _load_val_cache(self, idx: int):
+        """Item ``idx``'s views from the cache, ``inst -> [(A_k, B_k)]``
+        (``[2, L]`` each), or ``None`` if it is not cached."""
+        path = self._val_cache_path(idx)
+        if path is None or not os.path.isdir(path):
+            return None
+        out = {}
+        for inst in self.instruments:
+            out[inst] = []
+            for k in range(self.num_strong_negatives + 1):
+                a, _ = read_wav(os.path.join(path, f"{inst}_A{k+1}.wav"))
+                b, _ = read_wav(os.path.join(path, f"{inst}_B{k+1}.wav"))
+                out[inst].append((a.T, b.T))
+        return out
+
+    def _save_val_cache(self, idx: int, views) -> None:
+        path = self._val_cache_path(idx)
+        if path is None:
+            return
+        os.makedirs(path, exist_ok=True)
+        for inst, pairs in views.items():
+            for k, (a, b) in enumerate(pairs):
+                write_wav(os.path.join(path, f"{inst}_A{k+1}.wav"), a.T, self.sample_rate)
+                write_wav(os.path.join(path, f"{inst}_B{k+1}.wav"), b.T, self.sample_rate)
+
+    def generate_contents_w_effects(
+        self, num_content: int, num_effects: int, out_dir: str, seed: int = 0
+    ) -> None:
+        """Data-inspection hook (reference ``data_loader.py:290-348``): a grid
+        of FX-manipulated contents and their mixtures, written to WAV:
+        ``<inst>_ori_<c>.wav`` (content c as read, the pad trimmed),
+        ``<inst>_<AA..><e>.wav`` (content c under effect e) and
+        ``mixture_<AA..><e>.wav`` (the clipped sum over instruments), with
+        ``AA..`` the two letters of c. Each (instrument, effect) is one FX
+        draw over all contents, drawn from a generator seeded with ``seed``;
+        the contents from a numpy generator seeded with ``seed``. The chains
+        run on the dataset's device, one walk an instrument."""
+        os.makedirs(out_dir, exist_ok=True)
+        dev = self.device
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator().manual_seed(seed)
+        L, sl = self.segment_length, slice(self.pad, self.pad + self.segment_length)
+        mixtures = torch.zeros(num_effects, num_content, 2, L, device=dev)
+
+        def tag(c: int, e: int) -> str:
+            return f"{chr(65 + c // 26)}{chr(65 + c % 26)}{e+1}"
+
+        for inst in self.instruments:
+            segs = self.files.sample_segments(rng, inst, num_content, L + 2 * self.pad)
+            for c in range(num_content):
+                write_wav(os.path.join(out_dir, f"{inst}_ori_{c}.wav"), segs[c, :, sl].T,
+                          self.sample_rate)
+            # draw e applies to every content: the draw axis is the effect
+            plan = plan_to(self.manipulators[inst].draw(gen, num_effects), dev)
+            x = torch.from_numpy(segs).to(dev).expand(num_effects, *segs.shape)
+            man = self.manipulators[inst].apply(plan, x)[..., sl].clamp(-1.0, 1.0)
+            mixtures += man
+            man = man.cpu().numpy()
+            for e in range(num_effects):
+                for c in range(num_content):
+                    write_wav(os.path.join(out_dir, f"{inst}_{tag(c, e)}.wav"), man[e, c].T,
+                              self.sample_rate)
+        mixtures = mixtures.clamp(-1.0, 1.0).cpu().numpy()
+        for e in range(num_effects):
+            for c in range(num_content):
+                write_wav(os.path.join(out_dir, f"mixture_{tag(c, e)}.wav"), mixtures[e, c].T,
+                          self.sample_rate)
+
+
 class StyleTransferTripletDataset(_FXDataset):
     """Converter training data: (A1 input, A2 ground truth, B2 reference)
     triplets, raw segments and one FX plan per (instrument, item)."""
@@ -263,16 +408,17 @@ class StyleTransferTripletDataset(_FXDataset):
     def sample_batch(
         self, indices: Sequence[int], epoch_seed: Optional[int] = None
     ) -> Dict[str, Dict[str, np.ndarray]]:
-        """The triplets themselves, augmented on the CPU by each
-        instrument's generic chain walk: ``inst -> {'a1','a2','b2'} ->
+        """The triplets themselves, augmented on the dataset's device by
+        each instrument's generic chain walk: ``inst -> {'a1','a2','b2'} ->
         [B, 2, segment_length]``."""
+        dev = self.device
         segs, plans = self.sample_raw_batch(indices, epoch_seed, transport="float32")
         views = augment_triplets(
-            self.manipulators, self.instruments, torch.from_numpy(segs), plans, self.pad,
-            self.segment_length, fast=False,
+            self.manipulators, self.instruments, torch.from_numpy(segs).to(dev), plan_to(plans, dev),
+            self.pad, self.segment_length, fast=False,
         )
         B = len(indices)
         return {
-            inst: {k: v[i * B : (i + 1) * B].numpy() for k, v in zip(("a1", "a2", "b2"), views)}
+            inst: {k: v[i * B : (i + 1) * B].cpu().numpy() for k, v in zip(("a1", "a2", "b2"), views)}
             for i, inst in enumerate(self.instruments)
         }

@@ -23,14 +23,17 @@ stage:
   (``ops/cuda/envelope.py``) through ``Compressor.apply``: one launch over
   lanes = draws x items x channels, each draw's parameters broadcast over
   its lanes; on the CPU it takes K2's plain version through the same
-  wrapper.
+  wrapper. A ``Compressor(blockwise=True)`` differs in its signature, so it
+  never shares a stage with an exact one, and its own ``apply`` takes the
+  blockwise launch (the JAX package keeps it off its Pallas fast path).
 
 It consumes the plans of ``AugmentationChain.draw``, one per group, so it
 is a pure evaluation-strategy change, held against the generic walk under
 the same plans in ``tests/test_torch_fastpath.py``.
 
-:func:`augment_triplets`, the converter's augmentation, lives here so that
-both the triplet dataset and the fused trainer can call it.
+:func:`augment_contrastive_views` and :func:`augment_triplets`, the two
+trainers' augmentations, live here so that both the datasets and the fused
+trainer can call them.
 """
 from __future__ import annotations
 
@@ -207,6 +210,55 @@ def dequant(segs: torch.Tensor) -> torch.Tensor:
     if segs.dtype == torch.int16:
         return segs.to(torch.float32) * (1.0 / 32768.0)
     return segs
+
+
+def augment_contrastive_views(
+    manipulators: Dict[str, AugmentationChain],
+    instruments: Sequence[str],
+    segs: torch.Tensor,          # [n_inst, items, 2(content A/B), 2(ch), L_load]
+    plans: Dict[str, dict],      # per instrument: its chain's plan for items*K draws
+    pad: int,
+    fast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The augmented views of ``ContrastivePairDataset``'s raw batch: per
+    (item, k) one FX draw applied to both content segments (the positive
+    pair), the pad trimmed, clipped to +-1. Returns full-length views
+    ``([n_inst, items*K, 2, L], [same])`` for :func:`crop_views`.
+
+    ``fast=True`` evaluates all instruments' chains in one batched walk
+    (``fx/fastpath.py``), the generic walk where it cannot."""
+    x = dequant(segs)
+    if fast:
+        try:
+            return _augment_contrastive_fast(manipulators, instruments, x, plans, pad)
+        except UnsupportedTopology:
+            pass
+    batch_a, batch_b = [], []
+    for i, inst in enumerate(instruments):
+        plan = plans[inst]
+        K = plan["stages"][0]["gate"].shape[0] // x.shape[1]
+        draws = x[i].repeat_interleave(K, dim=0)  # [items*K, 2, 2, L_load], item-major
+        man = manipulators[inst].apply(plan, draws)
+        if pad:
+            man = man[..., pad:-pad]
+        man = man.clamp(-1.0, 1.0)
+        batch_a.append(man[:, 0])
+        batch_b.append(man[:, 1])
+    return torch.stack(batch_a), torch.stack(batch_b)
+
+
+def _augment_contrastive_fast(manipulators, instruments, x, plans, pad):
+    """Batched-draw :func:`augment_contrastive_views`: draw axis = (inst,
+    item, k), instrument-major; each content pair repeated per k-draw so one
+    walk covers every draw."""
+    n_inst, B = x.shape[0], x.shape[1]
+    DK = plans[instruments[0]]["stages"][0]["gate"].shape[0]  # items * K
+    x_draws = x.repeat_interleave(DK // B, dim=1).reshape((n_inst * DK,) + tuple(x.shape[2:]))
+    y = eval_manipulators_batched(manipulators, instruments, plans, x_draws, DK)
+    if pad:
+        y = y[..., pad:-pad]
+    y = y.clamp(-1.0, 1.0).reshape((n_inst, DK) + tuple(y.shape[1:]))
+    return y[:, :, 0], y[:, :, 1]
 
 
 def augment_triplets(

@@ -337,9 +337,10 @@ class Equaliser:
 class Compressor:
     """Single-band compressor (reference ``common_audioeffects.py:590-661``):
     per channel, zero initial envelope, no make-up gain. It runs through
-    ``ops/compressor.py:compressor_process``, so on the card through K2.
-    ``blockwise=True`` (the JAX package's chunk-parallel approximation) is
-    not ported: no default chain sets it."""
+    ``ops/compressor.py:compressor_process``, so on the card through K2;
+    ``blockwise=True`` takes the chunk-parallel approximation there (one
+    launch over the signal's 4096-sample blocks, each from a zero envelope
+    8192 samples earlier). No default chain sets it."""
 
     name = "comp"
 
@@ -368,16 +369,12 @@ class Compressor:
         }
 
     def apply(self, params, x: torch.Tensor) -> torch.Tensor:
-        if self.blockwise:
-            raise NotImplementedError(
-                "Compressor(blockwise=True) is not ported to the PyTorch package "
-                "(ROADMAP A: fx/timefx.py, ops/resample.py, compand and the blockwise envelope)"
-            )
         nd = x.dim() - 1
         th, att, rel, ratio = (
             _p(params[k], x, nd) for k in ("threshold", "attack_ms", "release_ms", "ratio")
         )
-        return compressor_process(x, th, att, rel, ratio, sample_rate=self.sample_rate)
+        return compressor_process(x, th, att, rel, ratio, sample_rate=self.sample_rate,
+                                  blockwise=self.blockwise)
 
 
 class AlgorithmicReverb:

@@ -9,6 +9,9 @@ each chunk; its header gives the algebra and what bounds it).
 ``envelope_chunked_reference`` a plain model of the kernel's three phases,
 for the tests. The wrapper ``compressor_envelope`` takes the plain version
 only for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+``serial_scan`` and ``chunked_scan`` are the two walks with the side chain
+given, for the compander (``ops/compressor.py:compand``), whose linear-domain
+envelope K2 does not compute.
 
 ``compressor_envelope.launches`` counts kernel launches (and nothing else),
 so a run can show that its path went through the kernel.
@@ -29,6 +32,37 @@ def _side_chain(xc, threshold, ratio):
 
     x_g = amp_to_db(xc)
     return x_g - static_gain_curve(x_g, threshold[:, None], ratio[:, None])
+
+
+def walk(p_att, p_rel, a_att, a_rel, z):
+    """The serial walk over one time-major chunk in the signed form:
+    ``p_att``, ``p_rel`` ``[C, L]`` hold ``s * (1 - a) * x_l`` of the attack
+    and release candidates, ``z`` ``[L]`` the carried ``s * e``. Step t
+    writes ``max(a_att * z + p_att[t], a_rel * z + p_rel[t])`` over
+    ``p_att[t]``, the order of the JAX package's ``_envelope_scan``
+    (``a * y + (1 - a) * x``). Returns the last ``z``."""
+    for t in range(p_att.shape[0]):
+        z = torch.maximum(
+            torch.addcmul(p_att[t], a_att, z), torch.addcmul(p_rel[t], a_rel, z), out=p_att[t]
+        )
+    return z
+
+
+def serial_scan(x_l, a_att, a_rel, env0):
+    """The envelope ``e [L, T]`` of ``x_l [L, T]`` (the side chain, given)
+    from ``env0 [L]``: ``e[t] = max`` (``min`` where ``a_att > a_rel``) of
+    ``a_att e[t-1] + (1 - a_att) x_l[t]`` and ``a_rel e[t-1] + (1 - a_rel)
+    x_l[t]``, walked serially in chunks of ``REFERENCE_CHUNK`` steps."""
+    s = torch.where(a_att <= a_rel, 1.0, -1.0).to(x_l.dtype)
+    b_att, b_rel = s * (1.0 - a_att), s * (1.0 - a_rel)
+    e = torch.empty_like(x_l)
+    z = s * env0
+    for t0 in range(0, x_l.shape[1], REFERENCE_CHUNK):
+        xc = x_l[:, t0 : t0 + REFERENCE_CHUNK].t().contiguous()  # can be x_l's own memory
+        p_att = xc * b_att
+        z = walk(p_att, xc * b_rel, a_att, a_rel, z)
+        e[:, t0 : t0 + REFERENCE_CHUNK] = s[:, None] * p_att.t()
+    return e
 
 
 def envelope_reference(x, threshold, ratio, a_att, a_rel, env0, rows=None):
@@ -58,39 +92,35 @@ def envelope_reference(x, threshold, ratio, a_att, a_rel, env0, rows=None):
         xc = x[:, t0 : t0 + REFERENCE_CHUNK]
         x_l = _side_chain(xc, threshold, ratio).t().contiguous()
         p_att = x_l * b_att  # [chunk, L]: s * (1 - a_att) * x_l
-        p_rel = x_l.mul_(b_rel)
-        for t in range(p_att.shape[0]):
-            z = torch.maximum(
-                torch.addcmul(p_att[t], a_att, z), torch.addcmul(p_rel[t], a_rel, z), out=p_att[t]
-            )
+        z = walk(p_att, x_l.mul_(b_rel), a_att, a_rel, z)
         y_l = s[:, None] * p_att.t()
         y[:, t0 : t0 + REFERENCE_CHUNK] = xc * torch.pow(10.0, -y_l / 20.0)
     return y, s * z
 
 
-def envelope_chunked_reference(x, threshold, ratio, a_att, a_rel, env0, chunk, rows=None):
-    """Plain model of the kernel's three phases, in the dtype of ``x``, same
-    arguments and result as :func:`envelope_reference`. In the signed form
-    ``z = s*e`` a chunk of ``chunk`` steps maps its carry to
-    ``max_i(A_i*z + B_i)`` with ``A_i = a_att^i * a_rel^(chunk-i)``:
-    (A) the intercepts ``B_i`` of every full chunk at once, by the DP over its
-    steps; (B) the carry across the chunks, one evaluation each; (C) every
-    chunk re-walked from its carry, the gain applied. The slopes are taken in
-    float64 and split into hi + lo parts of ``x``'s dtype, as the kernel
-    does. A lane's last chunk, full or not, is only walked, as in the kernel."""
-    if rows is not None:
-        x = x.index_select(0, rows)
-    L, T = x.shape
+def chunked_scan(x_l, a_att, a_rel, env0, chunk):
+    """The envelope of :func:`serial_scan` (same arguments, the side chain
+    ``x_l [L, T]`` given) by the kernel's three phases, in the dtype of
+    ``x_l`` and on its device: C + T/C + C small steps over whole tensors
+    instead of T. In the signed form ``z = s*e`` a chunk of ``chunk`` steps
+    maps its carry to ``max_i(A_i*z + B_i)`` with ``A_i = a_att^i *
+    a_rel^(chunk-i)``: (A) the intercepts ``B_i`` of every full chunk at
+    once, by the DP over its steps; (B) the carry across the chunks, one
+    evaluation each; (C) every chunk re-walked from its carry. The slopes
+    are taken in float64 and split into hi + lo parts of ``x_l``'s dtype,
+    as the kernel does. A lane's last chunk, full or not, is only walked,
+    as in the kernel."""
+    L, T = x_l.shape
     C = int(chunk)
-    s = torch.where(a_att <= a_rel, 1.0, -1.0).to(x.dtype)
-    a, c = a_att.to(x.dtype), a_rel.to(x.dtype)
+    dt, dev = x_l.dtype, x_l.device
+    s = torch.where(a_att <= a_rel, 1.0, -1.0).to(dt)
+    a, c = a_att.to(dt), a_rel.to(dt)
     b_att, b_rel = s * (1.0 - a), s * (1.0 - c)
     n_chunks = -(-T // C)
-    x_l = torch.nn.functional.pad(_side_chain(x, threshold, ratio), (0, n_chunks * C - T))
-    x_l = x_l.reshape(L, n_chunks, C)
+    x_l = torch.nn.functional.pad(x_l, (0, n_chunks * C - T)).reshape(L, n_chunks, C)
     # (A) intercepts of every chunk but the last: B [L, n_chunks - 1, C + 1]
     xa = x_l[:, : n_chunks - 1]
-    B = torch.zeros(L, n_chunks - 1, C + 1, dtype=x.dtype)
+    B = torch.zeros(L, n_chunks - 1, C + 1, dtype=dt, device=dev)
     for t in range(C):
         p, q = b_att[:, None] * xa[..., t], b_rel[:, None] * xa[..., t]
         att = a[:, None, None] * B[..., :t + 1] + p[..., None]
@@ -99,12 +129,12 @@ def envelope_chunked_reference(x, threshold, ratio, a_att, a_rel, env0, chunk, r
         B[..., t + 1] = att[..., t]
         B[..., 0] = rel[..., 0]
     # (B) the carry into every chunk
-    i = torch.arange(C + 1, dtype=torch.float64)
+    i = torch.arange(C + 1, dtype=torch.float64, device=dev)
     A = a.double()[:, None] ** i * c.double()[:, None] ** (C - i)  # [L, C + 1]
-    a_hi = A.to(x.dtype)
-    a_lo = (A - a_hi.double()).to(x.dtype)
-    z = s * env0.to(x.dtype)
-    carry = torch.empty(L, n_chunks, dtype=x.dtype)
+    a_hi = A.to(dt)
+    a_lo = (A - a_hi.double()).to(dt)
+    z = s * env0.to(dt)
+    carry = torch.empty(L, n_chunks, dtype=dt, device=dev)
     for j in range(n_chunks):
         carry[:, j] = z
         if j + 1 < n_chunks:
@@ -116,10 +146,17 @@ def envelope_chunked_reference(x, threshold, ratio, a_att, a_rel, env0, chunk, r
         zz = torch.maximum(a[:, None] * zz + b_att[:, None] * x_l[..., t],
                            c[:, None] * zz + b_rel[:, None] * x_l[..., t])
         e[..., t] = zz
-    last = (T - 1) - (n_chunks - 1) * C  # the last sample's step in its chunk
-    env_out = s * e[:, -1, last]
-    e = (s[:, None] * e.reshape(L, -1))[:, :T]
-    return x * torch.pow(10.0, -e / 20.0), env_out
+    return (s[:, None] * e.reshape(L, -1))[:, :T]
+
+
+def envelope_chunked_reference(x, threshold, ratio, a_att, a_rel, env0, chunk, rows=None):
+    """Plain model of the kernel's three phases (:func:`chunked_scan` over
+    the dB side chain), in the dtype of ``x``, same arguments and result as
+    :func:`envelope_reference`."""
+    if rows is not None:
+        x = x.index_select(0, rows)
+    e = chunked_scan(_side_chain(x, threshold, ratio), a_att, a_rel, env0, chunk)
+    return x * torch.pow(10.0, -e / 20.0), e[:, -1]
 
 
 def _bind(lib):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .biquad import biquad_apply, biquad_cascade_fft, rbj_coeffs, rbj_poles
+from .compressor import compand
 from .stft import frame
 
 K_WEIGHT_SPECTRAL_MIN = 65536
@@ -106,4 +107,19 @@ def lufs_normalize(x: torch.Tensor, rate: int, target_lufs) -> torch.Tensor:
     unchanged, where pyloudnorm NaNs."""
     loud = integrated_loudness(x + 1e-10, rate)
     y = torch.where(torch.isfinite(loud), loudness_normalize(x, loud, target_lufs), x)
+    return y / torch.clamp_min(1e-6 + y.abs().max(), 1.0)
+
+
+def lufs_normalize_compand(x: torch.Tensor, rate: int, target_lufs) -> torch.Tensor:
+    """Reference ``fx_utils.lufs_normalize_compand`` (:240-263): sox compand
+    (attack 1 ms, decay 10 ms, knee 1 dB, curve (-70,-70)/(-0.1,-20)/(0,0))
+    then BS.1770 loudness normalization with peak protection. ``x`` is
+    ``[C, T]`` channel-first; loudness is measured on the transpose.
+    Fully-gated (silent) input passes through unchanged, where pyloudnorm
+    NaNs."""
+    y = compand(x, attack_s=0.001, decay_s=0.01,
+                tf_points=((-70.0, -70.0), (-0.1, -20.0), (0.0, 0.0)),
+                soft_knee_db=1.0, sample_rate=rate)
+    loud = integrated_loudness(y.T + 1e-10, rate)
+    y = torch.where(torch.isfinite(loud), loudness_normalize(y, loud, target_lufs), y)
     return y / torch.clamp_min(1e-6 + y.abs().max(), 1.0)

@@ -29,12 +29,7 @@ import numpy as np
 import torch
 
 from ..fx.chain import AugmentationChain, plan_to
-from ..fx.fastpath import (
-    UnsupportedTopology,
-    augment_triplets,
-    dequant,
-    eval_manipulators_batched,
-)
+from ..fx.fastpath import augment_contrastive_views, augment_triplets
 from ..models import FXencoder
 from ..models.fx_encoder import keep_buffers
 from ..utils.device import full_float32, resolve_device
@@ -52,55 +47,6 @@ def crop_views(views: torch.Tensor, starts: torch.Tensor, length: int) -> torch.
     starts = torch.as_tensor(starts, dtype=torch.int64, device=views.device).clamp(0, L - length)
     idx = starts[:, None] + torch.arange(length, device=views.device)  # [B, length]
     return torch.gather(views, -1, idx[None, :, None, :].expand(views.shape[:-1] + (length,)))
-
-
-def augment_contrastive_views(
-    manipulators: Dict[str, AugmentationChain],
-    instruments: Sequence[str],
-    segs: torch.Tensor,          # [n_inst, items, 2(content A/B), 2(ch), L_load]
-    plans: Dict[str, dict],      # per instrument: its chain's plan for items*K draws
-    pad: int,
-    fast: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The augmented views of ``ContrastivePairDataset``'s raw batch: per
-    (item, k) one FX draw applied to both content segments (the positive
-    pair), the pad trimmed, clipped to +-1. Returns full-length views
-    ``([n_inst, items*K, 2, L], [same])`` for :func:`crop_views`.
-
-    ``fast=True`` evaluates all instruments' chains in one batched walk
-    (``fx/fastpath.py``), the generic walk where it cannot."""
-    x = dequant(segs)
-    if fast:
-        try:
-            return _augment_contrastive_fast(manipulators, instruments, x, plans, pad)
-        except UnsupportedTopology:
-            pass
-    batch_a, batch_b = [], []
-    for i, inst in enumerate(instruments):
-        plan = plans[inst]
-        K = plan["stages"][0]["gate"].shape[0] // x.shape[1]
-        draws = x[i].repeat_interleave(K, dim=0)  # [items*K, 2, 2, L_load], item-major
-        man = manipulators[inst].apply(plan, draws)
-        if pad:
-            man = man[..., pad:-pad]
-        man = man.clamp(-1.0, 1.0)
-        batch_a.append(man[:, 0])
-        batch_b.append(man[:, 1])
-    return torch.stack(batch_a), torch.stack(batch_b)
-
-
-def _augment_contrastive_fast(manipulators, instruments, x, plans, pad):
-    """Batched-draw :func:`augment_contrastive_views`: draw axis = (inst,
-    item, k), instrument-major; each content pair repeated per k-draw so one
-    walk covers every draw."""
-    n_inst, B = x.shape[0], x.shape[1]
-    DK = plans[instruments[0]]["stages"][0]["gate"].shape[0]  # items * K
-    x_draws = x.repeat_interleave(DK // B, dim=1).reshape((n_inst * DK,) + tuple(x.shape[2:]))
-    y = eval_manipulators_batched(manipulators, instruments, plans, x_draws, DK)
-    if pad:
-        y = y[..., pad:-pad]
-    y = y.clamp(-1.0, 1.0).reshape((n_inst, DK) + tuple(y.shape[1:]))
-    return y[:, :, 0], y[:, :, 1]
 
 
 class _FusedPipeline:

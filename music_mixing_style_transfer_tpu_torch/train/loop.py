@@ -107,10 +107,13 @@ def _run_steps(pipeline, state, make_batch, steps_per_epoch: int):
 
 
 def _epoch_record(model: str, epoch: int, loss: float, lr: float, timer, timed, synced,
-                  epoch_t0: float, launches0: int, val_launches0: int, val_loss) -> Dict:
+                  epoch_t0: float, launches0: int, val_launches0: int, val_loss, ds,
+                  ds_val) -> Dict:
     """The epoch's ``metrics.jsonl`` record: the JAX package's keys
     (``model``, ``epoch``, ``loss``, ``lr``, ``wall``, ``time``,
-    ``val_loss``) and the K2 launches under ``launches``."""
+    ``val_loss``), the K2 launches under ``launches``, and under ``reader``
+    each split's segment reader (``"native"`` or ``"wavio"``; ``val`` is
+    ``None`` without a held-out split)."""
     wall = {k: round(v, 3) for k, v in timer.totals.items()}
     wall["host"] = round(timed.seconds, 3)
     wall["epoch"] = round(time.perf_counter() - epoch_t0, 3)
@@ -130,6 +133,7 @@ def _epoch_record(model: str, epoch: int, loss: float, lr: float, timer, timed, 
             "compressor_envelope_synced_step": None if synced is None else synced["launches"],
             "compressor_envelope_val": compressor_envelope.launches - val_launches0,
         },
+        "reader": {"train": ds.files.reader, "val": None if ds_val is None else ds_val.files.reader},
     }
     if val_loss is not None:
         record["val_loss"] = val_loss
@@ -179,7 +183,8 @@ def train_fxencoder(
 
     Each epoch appends a record to ``<out_dir>/metrics.jsonl`` with the JAX
     package's keys (``model``, ``epoch``, ``loss``, ``lr``, ``probs``,
-    ``wall``, ``time``, ``val_loss``) and the K2 launches under ``launches``:
+    ``wall``, ``time``, ``val_loss``), each split's segment reader under
+    ``reader``, and the K2 launches under ``launches``:
     the epoch's (``compressor_envelope``), the synced step's and the
     validation's; ``wall`` holds the per-epoch timer sections (``step``:
     the steps' host time, enqueue but for the synced one) and one step's
@@ -212,7 +217,7 @@ def train_fxencoder(
                 data_dir, mode=val_mode, instruments=instruments,
                 segment_length=tcfg.segment_length,
                 num_strong_negatives=tcfg.num_strong_negatives,
-                apply_prob_dict=final_probs, reverb_prob=dict(tcfg.reverb_prob),
+                apply_prob_dict=final_probs, reverb_prob=dict(tcfg.reverb_prob), device=dev,
             )
         except FileNotFoundError as e:
             log.warning("no usable %s split for validation (%s)", val_mode, e)
@@ -236,7 +241,7 @@ def train_fxencoder(
             data_dir, mode="train", instruments=instruments,
             segment_length=tcfg.segment_length,
             num_strong_negatives=tcfg.num_strong_negatives,
-            apply_prob_dict=probs, reverb_prob=dict(tcfg.reverb_prob),
+            apply_prob_dict=probs, reverb_prob=dict(tcfg.reverb_prob), device=dev,
         )
         pipeline.set_chains(ds.manipulators, ds.instruments, ds.pad)
         rng = np.random.default_rng(tcfg.seed + epoch)
@@ -257,7 +262,7 @@ def train_fxencoder(
             else None
         )
         record = _epoch_record("fxencoder", epoch, epoch_loss, current_lr(tcfg, state.step), timer,
-                               timed, synced, epoch_t0, launches0, val_launches0, val_loss)
+                               timed, synced, epoch_t0, launches0, val_launches0, val_loss, ds, ds_val)
         record["probs"] = {k: round(v, 4) for k, v in probs.items()}
         _log_metrics(out_dir, record)
         if (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1:
@@ -331,7 +336,7 @@ def train_converter(
     def dataset(mode):  # the converter keeps its FX probabilities fixed
         return StyleTransferTripletDataset(
             data_dir, mode=mode, instruments=instruments, segment_length=tcfg.segment_length,
-            apply_prob_dict=dict(tcfg.apply_prob), reverb_prob=dict(tcfg.reverb_prob),
+            apply_prob_dict=dict(tcfg.apply_prob), reverb_prob=dict(tcfg.reverb_prob), device=dev,
         )
 
     def pipeline_for(ds):
@@ -375,7 +380,7 @@ def train_converter(
         )
         _log_metrics(out_dir, _epoch_record(
             "converter", epoch, epoch_loss, current_lr(tcfg, state.step), timer, timed, synced,
-            epoch_t0, launches0, val_launches0, val_loss,
+            epoch_t0, launches0, val_launches0, val_loss, ds, ds_val,
         ))
         if (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1:
             mgr.save(epoch + 1, state)

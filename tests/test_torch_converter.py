@@ -265,7 +265,8 @@ def test_train_converter_trains_resumes_and_validates_in_training_mode(corpus, t
     state = train_converter(corpus, run, encoder, epochs=1, fused=True, **kw)
     assert state.step == 2 and os.listdir(os.path.join(run, "ckpt_conv")) == ["step_00000001.pt"]
     (rec,) = _records(run)
-    assert set(rec) == JAX_RECORD_KEYS | {"launches"} and rec["model"] == "converter"
+    assert set(rec) == JAX_RECORD_KEYS | {"launches", "reader"} and rec["model"] == "converter"
+    assert rec["reader"] == {"train": "native", "val": "native"}  # the native wav bank
     assert np.isfinite(rec["loss"]) and np.isfinite(rec["val_loss"])
     assert {"step", "host", "epoch", "synced_step", "synced_augment", "synced_train_step"} <= set(rec["wall"])
     assert rec["launches"] == {"compressor_envelope": 0, "compressor_envelope_synced_step": 0,

@@ -492,3 +492,86 @@ def test_train_converter_keeps_its_pace_after_a_full_cache(card, tmp_path):
     runs = remat_after_full_cache(str(tmp_path))
     assert runs["remat_after"]["alloc_retries"] == 0, runs
     assert runs["remat_after"]["synced_step"] <= 1.25 * runs["remat_fresh"]["synced_step"], runs
+
+
+@pytest.mark.cuda
+def test_blockwise_compressor_on_the_card(card):
+    """``Compressor(blockwise=True)`` at [4, 2, 3 x 4096 + 100]: one K2
+    launch over the 32 blocks as lanes, and the processor within 1e-5 of
+    max|float64| of a float64 run of the plain version on those lanes, on
+    the card; the CPU's float32 processor beside it within 1e-4 (its serial
+    float32 walk drifts ~1e-5 from float64 on noise)."""
+    from music_mixing_style_transfer_tpu_torch.fx.processors import Compressor
+    from music_mixing_style_transfer_tpu_torch.ops import compressor as comp
+
+    fx = Compressor(blockwise=True)
+    p = fx.sample(torch.Generator().manual_seed(0), 4)
+    rng = np.random.default_rng(2)
+    R, T = 4 * 2, 3 * 4096 + 100
+    x = torch.from_numpy((rng.standard_normal((4, 2, T)) * 0.3).astype(np.float32))
+    lanes = {}
+
+    def capture(xl, *args):
+        lanes["args"] = (xl, *args)
+        return compressor_envelope(xl, *args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(comp, "compressor_envelope", capture)
+        before = compressor_envelope.launches
+        got = fx.apply({k: v.to(card) for k, v in p.items()}, x.to(card)).cpu()
+        assert compressor_envelope.launches == before + 1
+    xl, *prm = lanes["args"]
+    assert tuple(xl.shape) == (R * 4, 8192 + 4096)
+    want, _ = envelope_reference(*(v.double() for v in (xl, *prm)))
+    want = want[:, 8192:].reshape(R, -1)[:, :T].reshape(4, 2, T).float().cpu()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= ENVELOPE_TOL * scale
+    assert (fx.apply(p, x) - got).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_compand_scan_on_the_card(card):
+    """``compand`` and ``lufs_normalize_compand`` at [2, 2^16] on audio
+    within full scale (peak 0.9): the card's chunked scan within 1e-5 of
+    max|float64| of a float64 serial run on the CPU. Above full scale the
+    reference's curve climbs 20 dB in its last 0.1 dB (slope 200), which
+    multiplies any float32 walk's rounding: the card there stays within 3x
+    of the CPU's float32 serial walk's own distance from float64."""
+    from music_mixing_style_transfer_tpu_torch.ops.compressor import compand
+    from music_mixing_style_transfer_tpu_torch.ops.loudness import lufs_normalize_compand
+
+    rng = np.random.default_rng(3)
+    T = 2**16
+    env = np.abs(np.sin(np.linspace(0, 7, T))) ** 3
+    loud = (rng.standard_normal((2, T)) * 0.6 * (0.003 + env)).astype(np.float32)
+    x = torch.from_numpy(loud * (0.9 / np.abs(loud).max()))
+
+    def err(a, b):
+        return (a.double().cpu() - b).abs().max().item() / b.abs().max().item()
+
+    for fn in (compand, lambda y: lufs_normalize_compand(y, 44100, -14.0)):
+        want = fn(x.double())
+        got = fn(x.to(card))
+        assert got.dtype == torch.float32 and err(got, want) <= 1e-5
+    hot = torch.from_numpy(loud)  # peaks ~2.6, +8 dBFS
+    want = compand(hot.double())
+    assert err(compand(hot.to(card)), want) <= 3 * err(compand(hot), want)
+
+
+@pytest.mark.cuda
+def test_time_fx_card_matches_cpu(card):
+    """Each time-FX processor at [2, 2^15] with one numpy-drawn parameter
+    set, card against CPU within 1e-4 of max|cpu|; ``bend`` at its drawn
+    segments."""
+    from music_mixing_style_transfer_tpu_torch.fx import timefx
+
+    rng = np.random.default_rng(4)
+    T = 2**15
+    x = torch.from_numpy((rng.standard_normal((2, T)) * 0.3).astype(np.float32))
+    draw = np.random.default_rng(5)
+    for fx in (timefx.PitchShift(), timefx.TimeStretch(), timefx.PlaybackSpeed(), timefx.Bend()):
+        params = fx.sample_host(draw, T) if isinstance(fx, timefx.Bend) else fx.sample_host(draw)
+        cpu = fx.apply(params, x)
+        got = fx.apply(params, x.to(card)).cpu()
+        assert got.shape == cpu.shape == (2, T)
+        assert (got - cpu).abs().max().item() <= 1e-4 * cpu.abs().max().item(), (fx.name, params)

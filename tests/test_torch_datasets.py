@@ -195,7 +195,7 @@ def test_training_cli_on_the_cpu(musdb_dir, tmp_path, capsys):
 def _triplets(musdb_dir, mode="train"):
     kw = dict(mode=mode, instruments=INSTS, segment_length=SEG)
     return (jds.StyleTransferTripletDataset(musdb_dir, **kw),
-            pds.StyleTransferTripletDataset(musdb_dir, **kw))
+            pds.StyleTransferTripletDataset(musdb_dir, device="cpu", **kw))
 
 
 @pytest.mark.parametrize("mode", ["train", "val"])
