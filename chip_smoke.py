@@ -103,7 +103,33 @@ non-zero:
    ``generate_contents_w_effects(2, 2)`` on the card (the file set, the
    mixtures within 2.5 LSB of their instruments' clipped sum, K2's
    launches).
-13. the ``kernels`` line (launches of the main path, and per path under
+13. parallel: the multi-card paths, one card standing for several (so no
+   time here is a scaling figure). ``infer/seqpar.py`` on one stereo stem
+   of 2^19 samples, default ``TCNConfig``, float32, TF32 off, over meshes of
+   2 and 4 entries of ``cuda:0`` against one forward (1e-5 of max|single|;
+   K1 11 launches a shard); ``transfer_song_pcm`` on a mesh of 2 entries of
+   ``cuda:0``, data parallel (within 1 LSB of the single-device run) and
+   sequence parallel (its seconds and K1 launches); ``train.cli fxencoder
+   --fused`` at full width without BN (per-rank batch statistics differ by
+   design) under ``torchrun --nproc_per_node 2`` on ``cuda:0`` over gloo,
+   2 epochs of 1 step, against one process on the same seed, ``torchrun
+   --nproc_per_node 1`` over NCCL, beside it (both steps' losses and the
+   held-out loss after the first update within 1e-4; two one-process runs
+   drift apart after a second Adam update, so its held-out loss is shown,
+   not held; K2 2 launches a step on each rank, and the held-out loss's 2
+   on rank 0; each rank's peak memory); ``train.cli converter
+   --fused`` at full width under 2 ranks at lr 0 against one process that
+   takes each rank's item as a step of its own (the epoch's loss and the
+   held-out loss within 1e-4, whatever the per-rank batch statistics); and
+   beside it two spawned ranks on ``cuda:0`` over gloo, 3 contrastive steps at full
+   width without BN against one process's over the whole batch (cuDNN
+   deterministic; the first step's averaged gradients within 1e-4 of each
+   tensor's max, and with SGD each step's loss and the parameters after
+   the last too; with Adam those are shown); and the FSDP contrastive
+   step at full width, one rank over NCCL (FSDP2 over gloo with CUDA
+   tensors killed its rank on the card), against the replicated step from
+   the same weights (1e-4).
+14. the ``kernels`` line (launches of the main path, and per path under
    ``launches_by_path``: each path runs with the counts set to 0 just
    before it and read just after; K2's ``fastpath``, ``triplet`` and
    ``blockwise`` hold its cases at those paths' shapes),
@@ -1681,6 +1707,416 @@ def phase_data_tools(tmp: str):
     return blockwise, by_path
 
 
+PAR_MESHES = (2, 4)          # sequence-parallel conversion: shards, all on cuda:0
+SEQPAR_TOL = 1e-5            # the time-sharded forward vs one forward, over max|single|
+PAR_LOSS_TOL = 1e-4          # two ranks vs one process: each epoch's loss and held-out loss, relative
+PAR_RANKS = 2                # training ranks sharing the one card, over gloo
+PAR_STEPS = 3                # spawned ranks vs one process: steps compared
+PAR_GRAD_TOL = 1e-4          # two ranks' averaged gradients (and SGD parameters) vs one process
+FSDP_TOL = 1e-4              # FSDP step vs the replicated step: loss and every parameter
+PAR_TIMEOUT = 600            # seconds a multi-process run may take before it is killed
+# the encoder of the loss comparisons: the published widths without BN (JAX's norm="none"):
+# per-rank batch statistics differ from the global batch's by design
+PAR_ENCODER = '{"norm": "none"}'
+
+
+class Started:
+    """A multi-process run started in the background: ``torchrun`` (its
+    own session, output to a log) or spawned ranks. ``wait`` joins it with
+    what is left of ``PAR_TIMEOUT``, kills whatever still runs and fails."""
+
+    def __init__(self, popen=None, procs=(), log_path=None):
+        import signal
+
+        self._signal = signal
+        self.popen, self.procs, self.log_path = popen, list(procs), log_path
+        self.deadline = time.perf_counter() + PAR_TIMEOUT
+        self.t0 = time.perf_counter()
+
+    def kill(self) -> None:
+        """Stop whatever of the run still runs (the phase's clean-up on a failure)."""
+        if self.popen is not None and self.popen.poll() is None:
+            os.killpg(self.popen.pid, self._signal.SIGKILL)
+            self.popen.wait()
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    def wait(self) -> float:
+        """Seconds the run took; raises if it failed or ran over."""
+        left = lambda: max(self.deadline - time.perf_counter(), 0.0)  # noqa: E731
+        over = False
+        if self.popen is not None:
+            try:
+                self.popen.wait(left())
+            except subprocess.TimeoutExpired:
+                over = True
+            if self.popen.poll() is None or over:
+                os.killpg(self.popen.pid, self._signal.SIGKILL)
+                self.popen.wait()
+        for p in self.procs:
+            p.join(left())
+            if p.is_alive():
+                over = True
+                p.kill()
+                p.join()
+        if over:
+            raise AssertionError(f"a run went over {PAR_TIMEOUT} s and was killed ({self.log_path})")
+        if self.popen is not None and self.popen.returncode != 0:
+            with open(self.log_path) as f:
+                raise AssertionError(f"exit code {self.popen.returncode}:\n{f.read()[-4000:]}")
+        return time.perf_counter() - self.t0
+
+
+def start_torchrun(nproc: int, model: str, tmp: str, out: str, extra) -> Started:
+    """``torchrun --standalone --nproc_per_node nproc -m ...train.cli model``
+    on the corpus under ``tmp``, in the background; see ``torchrun_result``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), "-m", "music_mixing_style_transfer_tpu_torch.train.cli", model,
+           "--data_dir", os.path.join(tmp, "corpus"), "--out_dir", os.path.join(tmp, out),
+           "--fused", *extra]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_path = os.path.join(tmp, out + ".log")
+    with open(log_path, "w") as log:
+        popen = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                 start_new_session=True, env=env)
+    return Started(popen=popen, log_path=log_path)
+
+
+def torchrun_result(run: Started, model: str, tmp: str, out: str) -> dict:
+    """A finished ``start_torchrun``: rank 0's ``metrics.jsonl`` records,
+    the checkpoints and the seconds. Fails on a non-zero exit."""
+    seconds = run.wait()
+    with open(os.path.join(tmp, out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ckpt = "ckpt_conv" if model == "converter" else "ckpt"
+    return {"run": out, "seconds": seconds,
+            "losses": [r["loss"] for r in recs], "val_losses": [r.get("val_loss") for r in recs],
+            "world_size": [r.get("world_size") for r in recs], "ranks": [r.get("ranks") for r in recs],
+            "wall": [r["wall"] for r in recs],
+            "launches_per_epoch": [r["launches"]["compressor_envelope"] for r in recs],
+            "checkpoints": sorted(os.listdir(os.path.join(tmp, out, ckpt)))}
+
+
+def rank_case(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of a spawned group of ``world`` ranks on ``cuda:0`` over
+    gloo, at full width, cuDNN deterministic; writes its result to ``out``.
+
+    Two ranks against one process (the FXencoder without BN): the
+    data-parallel contrastive step on this rank's items for ``PAR_STEPS``
+    steps against this rank's own one-process steps over the whole batch,
+    from the same weights: the first step's averaged gradients, each step's
+    loss and the parameters after the last, with SGD (held) and with Adam
+    (shown: its first updates are ~lr*sign(g), which flips with rounding
+    wherever g ~ 0). Then, on rank 0 alone in a one-rank NCCL subgroup
+    (FSDP2 over gloo with CUDA tensors killed its rank with SIGSEGV on the
+    card), the FSDP step (with BN, SGD) against the replicated step from
+    the same weights, and each rank's share of the parameters and of Adam's
+    moments after an Adam FSDP step."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig
+        from music_mixing_style_transfer_tpu_torch.models import FXencoder
+        from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+        from music_mixing_style_transfer_tpu_torch.train.contrastive import (
+            make_contrastive_train_step,
+            make_fsdp_contrastive_step,
+            shard_train_state,
+        )
+        from music_mixing_style_transfer_tpu_torch.train.state import TrainState, make_optimizer
+
+        rng = np.random.default_rng(SEED + 40)
+        data = [[torch.from_numpy((rng.standard_normal((1, 8, 2, 2**15)) * 0.2).astype(np.float32)).cuda()
+                 for _ in range(2)] for _ in range(PAR_STEPS)]
+        k = 8 // world
+
+        def fresh(norm):
+            return fast_init(FXencoder(FXencoderConfig(norm=norm)), seed=SEED + 40).cuda().train()
+
+        def optimizer(name, model):
+            if name == "sgd":
+                return torch.optim.SGD(model.parameters(), lr=1e-3)
+            return make_optimizer(model.parameters())
+
+        def steps(group, opt_name):
+            model = fresh("none")
+            state = TrainState(0, model, optimizer(opt_name, model))
+            step = make_contrastive_train_step(0.1, "float32", group)
+            losses, grads = [], None
+            for a, b in data:
+                if group is not None:
+                    a, b = a[:, rank * k:(rank + 1) * k], b[:, rank * k:(rank + 1) * k]
+                state, loss = step(state, a, b)
+                losses.append(float(loss))
+                grads = grads or {n: p.grad.clone() for n, p in model.named_parameters()}
+            return losses, grads, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+        def rel(x, y):
+            return max(float((x[n] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                       for n, v in y.items())
+
+        for opt_name in ("sgd", "adam"):
+            l2, g2, p2 = steps(dist.group.WORLD, opt_name)
+            l1, g1, p1 = steps(None, opt_name)
+            res[opt_name] = {"losses": l2, "one_process_losses": l1, "grad_rel_err": rel(g2, g1),
+                             "params_rel_err": rel(p2, p1)}
+        sub = dist.new_group([0], backend="nccl")  # every rank takes part in making it
+        if rank == 0:
+            after = {}
+            for name in ("replicated", "fsdp"):
+                model = fresh("batch")
+                state = TrainState(0, model, torch.optim.SGD(model.parameters(), lr=1.0))
+                if name == "fsdp":
+                    state = shard_train_state(state, sub)
+                    step = make_fsdp_contrastive_step(sub)
+                else:
+                    step = make_contrastive_train_step(0.1, "float32", sub)
+                state, loss = step(state, *data[0])
+                res[name] = {"loss": float(loss)}
+                after[name] = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
+                               for n, p in model.named_parameters()}
+                after[name].update({n: b.clone() for n, b in model.named_buffers() if "running" in n})
+            res["fsdp_rel_err"] = rel(after["fsdp"], after["replicated"])
+            model = fresh("batch")
+            state = shard_train_state(TrainState(0, model, make_optimizer(model.parameters())), sub)
+            make_fsdp_contrastive_step(sub)(state, *data[0])
+            res.update(
+                params=sum(p.numel() for p in model.parameters()),
+                local_params=sum(p.to_local().numel() for p in model.parameters()),
+                local_moments=sum(state.optimizer.state[p]["exp_avg"].to_local().numel()
+                                  for p in model.parameters()))
+        dist.barrier()
+        torch.cuda.synchronize()
+        res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    except BaseException:
+        import traceback
+
+        res = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def start_ranks(tmp: str, world: int) -> Started:
+    """``rank_case`` in ``world`` spawned processes, in the background."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "ranks_store")
+    procs = [ctx.Process(target=rank_case, args=(r, world, store, os.path.join(tmp, f"ranks_{r}.json")),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return Started(procs=procs, log_path=store)
+
+
+def ranks_result(run: Started, tmp: str) -> dict:
+    """The finished ``start_ranks``: each rank's result, and the seconds."""
+    seconds = run.wait()
+    ranks = []
+    for r, p in enumerate(run.procs):
+        out = os.path.join(tmp, f"ranks_{r}.json")
+        if not os.path.exists(out):
+            raise AssertionError(f"rank {r} left no result (exit code {p.exitcode})")
+        with open(out) as f:
+            ranks.append(json.load(f))
+        if "error" in ranks[-1]:
+            raise AssertionError(f"rank {r} failed:\n{ranks[-1]['error']}")
+    return {"ranks": ranks, "seconds": seconds}
+
+
+def phase_parallel(tmp: str):
+    """Multi-card paths on the one card, each shard or rank standing for a
+    card (so no time here is a scaling figure): sequence-parallel
+    conversion, data- and sequence-parallel ``transfer_song_pcm``, both
+    training CLIs under two ranks over gloo against one process, the CLI
+    under ``torchrun --nproc_per_node 1`` over NCCL, and the FSDP step.
+    Returns the kernels' launches on these paths (for ``launches_by_path``)."""
+    t0 = time.perf_counter()
+    import gc
+
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import InferenceConfig, TCNConfig
+    from music_mixing_style_transfer_tpu_torch.infer.pipeline import (
+        MixingStyleTransfer,
+        StyleTransferEngine,
+    )
+    from music_mixing_style_transfer_tpu_torch.infer.seqpar import make_seq_parallel_converter
+    from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.parallel import create_mesh
+    from music_mixing_style_transfer_tpu_torch.train import cli
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    def shards(n):
+        return create_mesh(n, ["cuda:0"] * n)
+
+    paths = {}
+    # 1. the time-sharded forward of one stereo stem, default TCNConfig, float32, TF32 off
+    rng = np.random.default_rng(SEED + 30)
+    model = fast_init(MixFXcloner(TCNConfig()), seed=SEED + 30).cuda().eval()
+    x = torch.from_numpy((rng.standard_normal((1, 2, T_SEG)) * 0.3).astype(np.float32)).cuda()
+    cond = torch.from_numpy(rng.standard_normal((1, 2048)).astype(np.float32)).cuda()
+    with full_float32(), torch.inference_mode():
+        single = model(x, cond)
+    seqpar = []
+    tcn_block.launches = compressor_envelope.launches = 0
+    for n in PAR_MESHES:
+        fn = make_seq_parallel_converter(model, shards(n))
+        torch.cuda.synchronize()
+        before = tcn_block.launches
+        t_run = time.perf_counter()
+        out = fn(x.transpose(1, 2), cond).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = float((out - single).abs().max() / single.abs().max())
+        seqpar.append({"shards": n, "seconds": time.perf_counter() - t_run, "rel_err": err,
+                       "tcn_block_launches": tcn_block.launches - before, "tol": SEQPAR_TOL})
+        print(json.dumps({"phase": "parallel_seqpar", **seqpar[-1]}), flush=True)
+        del fn
+    paths["parallel_seqpar"] = {"tcn_block": tcn_block.launches, "compressor_envelope": 0}
+    if not all(c["rel_err"] <= SEQPAR_TOL and c["tcn_block_launches"] == 11 * c["shards"]
+               for c in seqpar):
+        raise AssertionError(f"sequence-parallel conversion failed: {seqpar}")
+    del model, single
+
+    # 2. transfer_song_pcm on a mesh of 2 entries of cuda:0: data parallel, then sequence parallel
+    rng = np.random.default_rng(SEED)
+    song, ref = synthetic_stems(rng, 4, T_SEG), synthetic_stems(rng, 4, 3 * T_SEG)
+    cfg = InferenceConfig(normalize_input=False)
+    one = MixingStyleTransfer(StyleTransferEngine(seed=SEED), cfg)
+    mesh_eng = StyleTransferEngine(seed=SEED, mesh=shards(2))
+    pcm = {}
+    want, _ = one.transfer_song_pcm(song, ref)
+    for name, c in (("data_parallel", cfg), ("sequence_parallel",
+                                             InferenceConfig(normalize_input=False, sequence_parallel=True))):
+        pipe = MixingStyleTransfer(mesh_eng, c)
+        pipe.transfer_song_pcm(song[:, :, :8192], ref[:, :, :8192])  # warm-up, not counted
+        torch.cuda.synchronize()
+        tcn_block.launches = 0
+        t_run = time.perf_counter()
+        mix, _ = pipe.transfer_song_pcm(song, ref)
+        pcm[name] = {"seconds": time.perf_counter() - t_run, "tcn_block_launches": tcn_block.launches,
+                     "max_lsb_vs_single_device": int(np.abs(mix.astype(np.int32) - want).max()),
+                     "shape": list(mix.shape)}
+        paths[f"parallel_{name}"] = {"tcn_block": tcn_block.launches, "compressor_envelope": 0}
+    print(json.dumps({"phase": "parallel_pcm", **pcm}), flush=True)
+    if not (pcm["data_parallel"]["max_lsb_vs_single_device"] <= 1
+            and all(p["tcn_block_launches"] == 22 and p["shape"] == [2, T_SEG] for p in pcm.values())):
+        raise AssertionError(f"the mesh's transfer_song_pcm failed: {pcm}")
+    del one, mesh_eng
+    torch.cuda.empty_cache()
+
+    started = []  # runs in the background: killed on the way out if still running
+
+    def launch(run):
+        started.append(run)
+        return run
+
+    try:
+        # 3-4. both training CLIs: two ranks on cuda:0 over gloo against one process, the
+        # one-process encoder run being torchrun's one rank over NCCL (cuda:LOCAL_RANK); groups
+        # run side by side on the card (their times are not scaling figures either way)
+        train_corpus(os.path.join(tmp, "corpus"), np.random.default_rng(SEED + 7))
+        enc = ["--encoder_config", PAR_ENCODER, "--batch_items", "4", "--epochs", "2",
+               "--steps_per_epoch", "1"]
+        ranks_args = ["--device", "cuda:0", "--dist_backend", "gloo"]
+        gc.collect()
+        torch.cuda.empty_cache()  # the card's memory for the ranks, not this process's cache
+        one = launch(start_torchrun(1, "fxencoder", tmp, "enc1", enc))
+        two = launch(start_torchrun(PAR_RANKS, "fxencoder", tmp, "enc2", enc + ranks_args))
+        runs = {"fxencoder_one_nccl": torchrun_result(one, "fxencoder", tmp, "enc1"),
+                "fxencoder_two": torchrun_result(two, "fxencoder", tmp, "enc2")}
+        encoder_ckpt = os.path.join(tmp, "enc1", "ckpt", "step_00000002.pt")
+        # the converter at lr 0: two ranks' step s (each its item 2s + r) is one process's steps
+        # 2s and 2s + 1 (one item each), whatever BN's batch statistics and the RMS loss's
+        # batch means give, so the epoch's loss and the held-out loss must agree
+        conv = ["--encoder_config", PAR_ENCODER, "--encoder_ckpt", encoder_ckpt, "--epochs", "1",
+                "--learning_rate", "0", "--segment_length", str(2**17)]
+        runs["converter_one"] = cli_run(cli, "converter", tmp, "one_process", "conv1", "ckpt_conv", 4,
+                                        conv + ["--batch_items", "1"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        two = launch(start_torchrun(PAR_RANKS, "converter", tmp, "conv2",
+                                    conv + ["--steps_per_epoch", "2", "--batch_items", "2", *ranks_args]))
+        spawned_run = launch(start_ranks(tmp, PAR_RANKS))  # step 5's ranks, beside the converter's
+        runs["converter_two"] = torchrun_result(two, "converter", tmp, "conv2")
+        print(json.dumps({"phase": "parallel_train", "runs": runs}), flush=True)
+
+        def close(a, b):
+            return all(abs(x - y) <= PAR_LOSS_TOL * abs(y) for x, y in zip(a, b)) and len(a) == len(b)
+
+        e1, e2 = runs["fxencoder_one_nccl"], runs["fxencoder_two"]
+        c1, c2 = runs["converter_one"], runs["converter_two"]
+
+        def k2(run):
+            return [[r["compressor_envelope"] for r in ranks] for ranks in run["ranks"]]
+
+        ok = (
+            # both steps' losses and the held-out loss after the first update; after the second
+            # update two one-process runs drift apart too (cuDNN's nondeterministic algorithms
+            # and Adam's sign-like first steps at full width: PERF.md §6), so that one is shown
+            close(e2["losses"], e1["losses"]) and close(e2["val_losses"][:1], e1["val_losses"][:1])
+            and e1["world_size"] == [1, 1] and e2["world_size"] == [PAR_RANKS] * 2
+            # each rank 2 K2 launches a step on its own lanes; rank 0 also the held-out loss's 2
+            and k2(e2) == [[4] + [2] * (PAR_RANKS - 1)] * 2 and k2(e1) == [[4], [4]]
+            and e2["checkpoints"] == e1["checkpoints"] == ["step_00000001.pt", "step_00000002.pt"]
+            and close(c2["losses"], c1["losses"]) and close(c2["val_losses"], c1["val_losses"])
+            and k2(c2) == [[2 * 2 + 2] + [2 * 2] * (PAR_RANKS - 1)]
+            and c1["launches_per_epoch"] == [2 * 4 + 2]
+        )
+        paths["parallel_train"] = {
+            "tcn_block": 0,
+            "compressor_envelope": sum(sum(sum(r) for r in k2(run)) for run in (e1, e2, c2))
+            + sum(c1["launches_per_epoch"]),
+        }
+        if not ok:
+            raise AssertionError(f"two ranks disagree with one process: {runs}")
+
+        # 5. two spawned ranks against one process, step by step; the FSDP step
+        spawned = ranks_result(spawned_run, tmp)
+    finally:
+        for run in started:
+            run.kill()
+    ranks = spawned["ranks"]
+    spawned.update(steps=PAR_STEPS, grad_tol=PAR_GRAD_TOL, fsdp_world=1, fsdp_backend="nccl",
+                   fsdp_tol=FSDP_TOL)
+    emit("parallel", t0, seqpar=seqpar, pcm=pcm, spawned=spawned,
+         fxencoder_val_after_two_updates_rel=abs(e2["val_losses"][1] - e1["val_losses"][1])
+         / abs(e1["val_losses"][1]),
+         peak_memory_gb_by_rank={k: [r["max_memory_gb"] for r in run["ranks"][-1]]
+                                 for k, run in (("fxencoder", e2), ("converter", c2))},
+         note="shards and ranks share one card: no time here is a scaling figure")
+    sgd = [r["sgd"] for r in ranks]
+    r0 = ranks[0]
+    ok = (
+        all(r["grad_rel_err"] <= PAR_GRAD_TOL and r["params_rel_err"] <= PAR_GRAD_TOL
+            and close(r["losses"], r["one_process_losses"]) for r in sgd)
+        # Adam: its first step's gradients (what follows flips with rounding where g ~ 0)
+        and all(r["adam"]["grad_rel_err"] <= PAR_GRAD_TOL for r in ranks)
+        and abs(r0["fsdp"]["loss"] - r0["replicated"]["loss"]) <= FSDP_TOL * abs(r0["replicated"]["loss"])
+        and r0["fsdp_rel_err"] <= FSDP_TOL and r0["local_moments"] == r0["local_params"] == r0["params"]
+    )
+    if not ok:
+        raise AssertionError(f"two spawned ranks or the FSDP step disagree: {spawned}")
+    return paths
+
+
 def summary(cases) -> dict:
     """Per-launch numbers of ``cases`` (one dtype, one shape, every
     dilation): the largest error, and times and bounds averaged."""
@@ -1802,6 +2238,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:  # the raw and the prepared corpus
         blockwise, data_paths = phase_data_tools(work)
     by_path.update(data_paths)
+    with tempfile.TemporaryDirectory() as work:  # the multi-card paths' corpus and runs
+        by_path.update(phase_parallel(work))
     with full_float32():
         kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path,
                                      fastpath, triplet, blockwise)

@@ -8,9 +8,10 @@ port never imports the JAX package. Single dataclass-based config
 ``inference/style_transfer.py:346-389``,
 ``mixing_style_transfer/networks/configs.yaml``).
 
-Fields that only the JAX package acts on (``InferenceConfig.sequence_parallel``,
-the ``TrainConfig`` mesh settings) are kept for compatibility; the port runs
-on one card and ignores them.
+``InferenceConfig.sequence_parallel`` selects the time-sharded conversion
+of a mesh engine (``infer/seqpar.py``). The ``TrainConfig`` mesh settings
+are kept for compatibility and ignored: the port's trainers take their
+ranks from the ``torch.distributed`` process group (``parallel/mesh.py``).
 """
 from __future__ import annotations
 

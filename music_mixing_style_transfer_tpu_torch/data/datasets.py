@@ -213,7 +213,13 @@ class _FXDataset:
         2(content A/B), 2(ch), segment_length + 2*pad]`` (int16 when
         losslessly quantizable, else float32), ``plans)``: per item one
         generator, and per instrument two segments of different content from
-        it; ``plans`` is ``batch_plans(indices)`` unless given."""
+        it; ``plans`` is ``batch_plans(indices)`` unless given.
+
+        Items are drawn one by one from ``(idx, epoch_seed)``, whatever the
+        other indices: a data-parallel rank passes only its block of the
+        global batch's indices (``train/fused.py:_FusedPipeline.shard``)
+        and reads only its own segments: the items and plans of that
+        block of the one-process batch."""
         load_len = self.segment_length + 2 * self.pad
         n_inst, B = len(self.instruments), len(indices)
         segs = np.zeros((n_inst, B, 2, 2, load_len), np.float32)

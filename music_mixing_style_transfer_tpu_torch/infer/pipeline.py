@@ -21,11 +21,21 @@ process-wide flags say, and they are restored afterwards. The fused blocks
 (K1) compute their float32 products as 3xTF32 on the tensor cores, at
 float32's accuracy (measured against float64 in ``PERF.md``).
 
-FX normalization always runs in float32, also under a bf16 engine. Not
-ported: the device mesh and ``sequence_parallel`` (one card).
+FX normalization always runs in float32, also under a bf16 engine.
+
+With a ``mesh`` (``parallel/mesh.py``; JAX ``pipeline.py:55-71``), one
+process drives every shard, as the JAX controller does (no
+``torch.distributed``): the weights are replicated once on each distinct
+device of the mesh, each segment batch is rounded up to a multiple of the
+mesh size and split over the shards, each shard's encoder and converter
+pass runs on its own device, and the results are gathered on the first
+device, where the means, the sum and the int16 quantization run. With
+``InferenceConfig.sequence_parallel`` the PCM path converts each whole
+stem in one time-sharded forward instead (``infer/seqpar.py``).
 """
 from __future__ import annotations
 
+import copy
 import functools
 import os
 import time
@@ -41,6 +51,7 @@ from ..data.wavio import read_wav_stereo_ct, read_wav_stereo_ct_i16, write_wav
 from ..models import FXencoder, MixFXcloner
 from ..models.checkpoints import load_model_state
 from ..models.fast_init import fast_init
+from ..parallel.mesh import Mesh
 from ..utils.device import full_float32, resolve_device
 from ..utils.logging import get_logger
 
@@ -85,7 +96,8 @@ def _engine_forward(fn):
 
 
 class StyleTransferEngine:
-    """FXencoder + MixFXcloner on one device, in full float32 or bfloat16."""
+    """FXencoder + MixFXcloner on one device, or replicated over a mesh's
+    devices, in full float32 or bfloat16."""
 
     def __init__(
         self,
@@ -96,8 +108,15 @@ class StyleTransferEngine:
         dtype: str = "float32",
         seed: int = 0,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        """``mesh``: shard every segment batch over its devices (weights
+        replicated, segment buckets rounded up to the mesh size); the
+        engine's ``device`` is then the mesh's first, where results are
+        gathered, and ``device`` is not used."""
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None else device)
+        self._n_shards = mesh.size if mesh is not None else 1
         self.encoder_cfg = encoder_cfg or FXencoderConfig()
         self.converter_cfg = converter_cfg or TCNConfig()
         if dtype not in ("float32", "bfloat16"):
@@ -106,42 +125,79 @@ class StyleTransferEngine:
         with torch.device("meta"):
             encoder = FXencoder(self.encoder_cfg)
             converter = MixFXcloner(self.converter_cfg)
-        self.encoder = _build(encoder, ckpt_path_enc, seed, "FXencoder").to(
-            self.device, self.dtype
-        )
-        self.converter = _build(converter, ckpt_path_conv, seed + 1, "MixFXcloner").to(
-            self.device, self.dtype
-        )
+        encoder = _build(encoder, ckpt_path_enc, seed, "FXencoder")
+        converter = _build(converter, ckpt_path_conv, seed + 1, "MixFXcloner")
+        self.encoder = encoder.to(self.device, self.dtype)
+        self.converter = converter.to(self.device, self.dtype)
+        # one replica of the weights on each distinct device of the mesh
+        self._replicas = {self.device: (self.encoder, self.converter)}
+        for dev in mesh.distinct if mesh is not None else ():
+            if dev not in self._replicas:
+                self._replicas[dev] = (copy.deepcopy(encoder).to(dev, self.dtype),
+                                       copy.deepcopy(converter).to(dev, self.dtype))
 
-    def _in(self, segments) -> torch.Tensor:
-        """Segments onto the device in the engine dtype; int16 PCM is
-        dequantized there (``/32768``) in the engine dtype."""
-        x = torch.as_tensor(segments).to(self.device)
+    def replica(self, dev: torch.device) -> Tuple[FXencoder, MixFXcloner]:
+        """The (encoder, converter) on ``dev``."""
+        return self._replicas[dev]
+
+    def _pad_bucket(self, n: int) -> int:
+        """Bucket size for n segments, rounded to a multiple of the mesh
+        size (JAX ``pipeline.py:171-175``)."""
+        k = self._n_shards
+        return -(-_bucket(n) // k) * k
+
+    def _shards(self, *batches):
+        """``(device, *parts)`` for each shard: the batches split into the
+        mesh's equal blocks on dim 0 (whole, on the engine's device,
+        without a mesh)."""
+        if self.mesh is None:
+            return [(self.device, *batches)]
+        parts = [torch.as_tensor(b).chunk(self._n_shards) for b in batches]
+        return [(dev, *(p[i] for p in parts)) for i, dev in enumerate(self.mesh.devices)]
+
+    def _gather(self, outs) -> torch.Tensor:
+        """The shards' results on the engine's device, in shard order."""
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
+
+    def _in(self, segments, dev=None) -> torch.Tensor:
+        """Segments onto ``dev`` (the engine's device by default) in the
+        engine dtype; int16 PCM is dequantized there (``/32768``) in the
+        engine dtype."""
+        x = torch.as_tensor(segments).to(dev or self.device, non_blocking=True)
         if x.dtype == torch.int16:
             return x.to(self.dtype) * (1.0 / 32768.0)
         return x.to(self.dtype)
 
+    def _embed(self, segments) -> torch.Tensor:
+        """FXencoder embeddings ``[N, D]`` (float32) of ``[N, 2, L]``, each
+        shard on its device, gathered on the engine's device."""
+        return self._gather(
+            self.replica(dev)[0](self._in(part, dev)).float() for dev, part in self._shards(segments)
+        )
+
     @_engine_forward
     def _encode_mean(self, segments, mask) -> torch.Tensor:
         """``[N, 2, L]`` -> masked mean embedding ``[D]`` (float32)."""
-        emb = self.encoder(self._in(segments)).float()
+        emb = self._embed(segments)
         w = torch.as_tensor(mask, device=self.device).float()[:, None]
         return (emb * w).sum(0) / w.sum().clamp_min(1.0)
 
     @_engine_forward
     def _encode_group_mean(self, segments, group_onehot) -> torch.Tensor:
         """``[N, 2, L]`` + group one-hot ``[G, N]`` -> per-group means ``[G, D]``."""
-        emb = self.encoder(self._in(segments)).float()
+        emb = self._embed(segments)
         w = torch.as_tensor(group_onehot, device=self.device).float()
         return (w @ emb) / w.sum(1, keepdim=True).clamp_min(1.0)
 
     @_engine_forward
     def _convert_multi(self, segments, embeddings) -> torch.Tensor:
         """Converter over ``[N, 2, L]`` with one embedding per segment
-        ``[N, D]``; returns float32 ``[N, 2, L]``."""
-        x = self._in(segments)
-        cond = torch.as_tensor(embeddings).to(self.device, self.dtype)
-        return self.converter(x, cond).float()
+        ``[N, D]``; returns float32 ``[N, 2, L]``, each shard converted on
+        its device and gathered on the engine's."""
+        return self._gather(
+            self.replica(dev)[1](self._in(x, dev), self._in(cond, dev)).float()
+            for dev, x, cond in self._shards(segments, embeddings)
+        )
 
     def _convert(self, segments, embedding) -> torch.Tensor:
         """Converter over ``[N, 2, L]`` with one embedding ``[D]`` for all."""
@@ -160,7 +216,7 @@ class StyleTransferEngine:
         else:
             segments, _ = segment_song(audio, segment_length)
         n_valid = segments.shape[0]
-        segments, _ = pad_to_batches(segments, _bucket(n_valid))
+        segments, _ = pad_to_batches(segments, self._pad_bucket(n_valid))
         mask = np.arange(segments.shape[0]) < n_valid
         return _numpy(self._encode_mean(segments, mask))
 
@@ -180,13 +236,13 @@ class StyleTransferEngine:
                 audio = np.pad(audio, ((0, 0), (0, segment_length - T)))
             segments, _ = segment_song(audio, segment_length)
             n_valid = segments.shape[0]
-            segments, _ = pad_to_batches(segments, _bucket(n_valid))
+            segments, _ = pad_to_batches(segments, self._pad_bucket(n_valid))
             out = self._convert(segments, embedding)
             return reassemble_song(_numpy(out)[:n_valid], T)
 
         segs = segment_song_halo(audio, segment_length, halo)
         n_valid = segs.shape[0]
-        segs, _ = pad_to_batches(segs, _bucket(n_valid))
+        segs, _ = pad_to_batches(segs, self._pad_bucket(n_valid))
         out = _numpy(self._convert(segs, embedding))[:n_valid, :, halo : halo + segment_length]
         return reassemble_song(out, T)
 
@@ -204,7 +260,7 @@ class StyleTransferEngine:
         chunk_len = T // n_chunks + 1
         segments, _ = segment_song(audio, chunk_len)
         n_valid = segments.shape[0]
-        segments, _ = pad_to_batches(segments, _bucket(n_valid))
+        segments, _ = pad_to_batches(segments, self._pad_bucket(n_valid))
         w = np.clip((n_chunks - 1 - np.arange(segments.shape[0])) / max(n_chunks - 1, 1), 0, 1)
         embs = w[:, None] * emb_a[None, :] + (1 - w)[:, None] * emb_b[None, :]
         out = self._convert_multi(segments, embs.astype(np.float32))
@@ -288,7 +344,7 @@ class MixingStyleTransfer:
                 ref_segs.append(segs)
                 ref_groups.extend([gi] * segs.shape[0])
             ref_all = np.concatenate(ref_segs, axis=0)
-            ref_all, _ = pad_to_batches(ref_all, _bucket(ref_all.shape[0]))
+            ref_all, _ = pad_to_batches(ref_all, self.engine._pad_bucket(ref_all.shape[0]))
             onehot = np.zeros((len(long_insts), ref_all.shape[0]), np.float32)
             for j, g in enumerate(ref_groups):
                 onehot[g, j] = 1.0
@@ -316,7 +372,7 @@ class MixingStyleTransfer:
             in_segs.append(segs)
             in_counts.append(segs.shape[0])
         in_all = np.concatenate(in_segs, axis=0)
-        in_all, _ = pad_to_batches(in_all, _bucket(in_all.shape[0]))
+        in_all, _ = pad_to_batches(in_all, self.engine._pad_bucket(in_all.shape[0]))
         cond = np.zeros((in_all.shape[0], embs.shape[1]), np.float32)
         ofs = 0
         for gi, cnt in enumerate(in_counts):
@@ -352,7 +408,7 @@ class MixingStyleTransfer:
         else:
             nr = 1
             ref_seg = F.pad(ref_dev, (0, max(-(-Tr // 4096) * 4096, 4096) - Tr))
-        B_ref = _bucket(S * nr)
+        B_ref = self.engine._pad_bucket(S * nr)
         ref_seg = F.pad(ref_seg, (0, 0, 0, 0, 0, B_ref - S * nr))
         onehot = np.zeros((S, B_ref), np.float32)
         for s in range(S):
@@ -427,13 +483,19 @@ class MixingStyleTransfer:
             w = np.clip((n_interp - 1 - np.arange(n)) / max(n_interp - 1, 1), 0.0, 1.0)
             wd = torch.as_tensor(w, dtype=torch.float32, device=dev)[None, :, None]
             cond = (wd * embs[:, None, :] + (1.0 - wd) * embs_b[:, None, :]).reshape(S * n, -1)
+        elif cfg.sequence_parallel and self.engine._n_shards > 1:
+            # one boundary-free time-sharded forward per stem (JAX pipeline.py:527-537)
+            from .seqpar import seq_parallel_convert_device
+
+            y = seq_parallel_convert_device(self.engine, y_in[:, :, :T], embs)
+            return self._finish_pcm(y, want_stems, insts, sync)
         else:
             n = Tb // L
             cond = embs.repeat_interleave(n, dim=0)
 
         # convert all stems' segments in one dispatch
         segs = y_in.reshape(S, 2, n, L).permute(0, 2, 1, 3).reshape(S * n, 2, L)
-        B_in = _bucket(S * n)
+        B_in = self.engine._pad_bucket(S * n)
         segs = F.pad(segs, (0, 0, 0, 0, 0, B_in - S * n))
         cond = F.pad(cond, (0, 0, 0, B_in - S * n))
         out = self.engine._convert_multi(segs, cond)

@@ -30,7 +30,13 @@ otherwise), so it never blocks live traffic.
 
 Run:  python -m music_mixing_style_transfer_tpu_torch.serve --port 8700 \
           [--ckpt_path_enc ... --ckpt_path_conv ... --dtype bfloat16] \
-          [--inference_device cpu]
+          [--inference_device cpu] [--data_parallel N [--sequence_parallel]]
+
+``--data_parallel N`` shards each segment batch over a mesh of N devices
+(``parallel/mesh.py``): ``cuda:0 .. cuda:N-1`` with ``--inference_device
+cuda``, or N shards of one named device (``cuda:K``, ``cpu``) that stands
+for N. ``--sequence_parallel`` converts each whole stem in one
+time-sharded forward (``infer/seqpar.py``).
 """
 from __future__ import annotations
 
@@ -48,11 +54,10 @@ import numpy as np
 from .config import InferenceConfig
 from .data.wavio import read_wav_stereo_ct, read_wav_stereo_ct_i16
 from .infer.pipeline import MixingStyleTransfer, StyleTransferEngine
+from .parallel.mesh import create_mesh
 from .utils.logging import get_logger
 
 log = get_logger("serve")
-
-NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP A6: multi-GPU inference)"
 
 
 class QueueFullError(Exception):
@@ -258,9 +263,11 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--segment_halo", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="shard the segment batch over N cards; " + NOT_PORTED)
+                   help="shard the segment batch over an N-device mesh (weights replicated): "
+                        "cuda:0..N-1, or N shards of a named --inference_device; 1 = one device")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="convert each whole stem in one time-sharded forward; " + NOT_PORTED)
+                   help="with --data_parallel > 1: convert each whole stem in one "
+                        "time-sharded forward (conv halos between shards); boundary-free output")
     p.add_argument("--max_queue", type=int, default=4,
                    help="requests allowed to WAIT behind the one computing; beyond "
                    "this /transfer and /embed return 429 with Retry-After")
@@ -270,14 +277,24 @@ def main(argv=None) -> int:
     p.add_argument("--inference_device", type=str, default="cuda",
                    help="torch device for the networks: cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.data_parallel > 1:
-        raise NotImplementedError(f"--data_parallel {args.data_parallel}: {NOT_PORTED}")
-    if args.sequence_parallel:
-        raise NotImplementedError(f"--sequence_parallel: {NOT_PORTED}")
+    # sequence parallelism only exists on a mesh, through the PCM fast path:
+    # fail loudly instead of serving segmented output (JAX serve.py:314-324)
+    if args.sequence_parallel and args.data_parallel <= 1:
+        p.error("--sequence_parallel requires --data_parallel > 1")
+    if args.sequence_parallel and args.segment_halo > 0:
+        p.error(
+            "--sequence_parallel is boundary-free already and only runs on "
+            "the PCM fast path, which --segment_halo > 0 disables"
+        )
 
+    mesh = None
+    if args.data_parallel > 1:
+        named = args.inference_device != "cuda"
+        mesh = create_mesh(args.data_parallel,
+                           [args.inference_device] * args.data_parallel if named else None)
     engine = StyleTransferEngine(
         ckpt_path_enc=args.ckpt_path_enc, ckpt_path_conv=args.ckpt_path_conv,
-        dtype=args.dtype, device=args.inference_device,
+        dtype=args.dtype, device=args.inference_device, mesh=mesh,
     )
     normalizer = None
     if args.normalize_input and args.precomputed_normalization_feature:
@@ -288,7 +305,7 @@ def main(argv=None) -> int:
         )
     cfg = InferenceConfig(
         do_not_separate=True, normalize_input=normalizer is not None, dtype=args.dtype,
-        segment_halo=args.segment_halo,
+        segment_halo=args.segment_halo, sequence_parallel=args.sequence_parallel,
     )
     service = StyleTransferService(engine, cfg, normalizer, max_queue=args.max_queue)
     if args.warmup_seconds > 0:

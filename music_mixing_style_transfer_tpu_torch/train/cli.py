@@ -8,25 +8,40 @@
         --encoder_ckpt runs/enc/ckpt/step_00000100.pt
 
 Trains on the card (``--device cuda``, the default) unless ``--device cpu``
-is given. ``--data_dir`` holds ``train/`` (and ``val/`` or ``test/``) with
-the MUSDB layout's ``{inst}_normalized_eqcompimagegain_silence_trimmed*.wav``.
+is given. On N cards, one process a card under ``torchrun``:
+
+    torchrun --nproc_per_node N -m music_mixing_style_transfer_tpu_torch.train.cli \
+        fxencoder --data_dir ... --out_dir ... --fused
+
+Each rank reads and trains on its block of every batch (``--batch_items``
+is the global batch; N must divide it and, for the encoder, ``batch_items
+* (num_strong_negatives + 1)``), gradients averaged over the ranks; rank 0
+writes the metrics, logs and checkpoints (``train/loop.py``). The group is
+NCCL on cards and gloo on the CPU (``--dist_backend`` overrides it: gloo
+lets several ranks share one card, which NCCL refuses); ``--device cuda``
+is ``cuda:LOCAL_RANK``, and an explicit ``--device cuda:K`` wins over it.
+
+``--data_dir`` holds ``train/`` (and ``val/`` or ``test/``) with the MUSDB
+layout's ``{inst}_normalized_eqcompimagegain_silence_trimmed*.wav``.
 The converter needs the frozen encoder's checkpoint, ``--encoder_ckpt``: a
 published ``FXencoder_ps.pt`` or a ``step_<n>.pt`` that the ``fxencoder``
 model wrote under ``<out_dir>/ckpt/``; the converter's own go under
 ``<out_dir>/ckpt_conv/``.
 
-Differences from the JAX CLI: ``--device``; ``--encoder_config`` and
-``--converter_config``, JSON objects of ``FXencoderConfig`` and
-``TCNConfig`` fields (the defaults are the published architectures;
-smaller ones serve tests and cut-depth runs; the converter's
-``condition_dimension`` must be the encoder's embedding width); an orbax
-``--encoder_ckpt`` directory raises (ROADMAP: "Orbax checkpoints").
-``--no_mesh`` is accepted and changes nothing: one process on one card (the
-data-parallel trainer is ROADMAP's DDP item). ``--retries`` is accepted and
-changes nothing: the JAX CLI re-executes on a TPU runtime's transient
-failures (a dropped compile service, a preemption), and a CUDA launch
-failure is no such thing (it leaves the process's context unusable and
-repeats on a rerun); resume from the checkpoints with a second run instead.
+Differences from the JAX CLI: ``--device`` and ``--dist_backend``;
+``--encoder_config`` and ``--converter_config``, JSON objects of
+``FXencoderConfig`` and ``TCNConfig`` fields (the defaults are the
+published architectures; smaller ones serve tests and cut-depth runs; the
+converter's ``condition_dimension`` must be the encoder's embedding
+width); an orbax ``--encoder_ckpt`` directory raises (ROADMAP: "Orbax
+checkpoints"). ``--no_mesh`` keeps the JAX meaning (no mesh: one device):
+a one-process run trains on one device whatever it is given, and under
+``torchrun`` with more than one rank it raises rather than train N
+independent models. ``--retries`` is accepted and changes nothing: the JAX
+CLI re-executes on a TPU runtime's transient failures (a dropped compile
+service, a preemption), and a CUDA launch failure is no such thing (it
+leaves the process's context unusable and repeats on a rerun); resume from
+the checkpoints with a second run instead.
 """
 from __future__ import annotations
 
@@ -36,8 +51,10 @@ import json
 import os
 import sys
 
+import torch.distributed as dist
+
 from ..config import FXencoderConfig, TCNConfig, TrainConfig
-from ..utils.device import resolve_device
+from ..parallel.mesh import init_process_group_from_env
 from .loop import train_converter, train_fxencoder
 
 
@@ -69,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted for the JAX CLI's sake; one card, no mesh")
+                   help="train on one device: raises under torchrun with more than one rank")
     p.add_argument("--fused", action="store_true",
                    help="walk all instruments' FX chains as one batched pass (fx/fastpath.py); "
                         "without it, one chain per instrument. Both on the device, same numbers")
@@ -93,8 +110,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(converter) weight of the per-channel L/R spectral term")
     p.add_argument("--retries", type=int, default=0,
                    help="accepted for the JAX CLI's sake; no effect (see the module docstring)")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="where to train; cpu only for tests")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where to train: cuda (under torchrun cuda:LOCAL_RANK), cuda:K, or cpu "
+                        "(tests)")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="torchrun's process group: nccl on cards, gloo on the CPU by default; "
+                        "gloo lets ranks share one card")
     p.add_argument("--encoder_config", type=str, default=None,
                    help="JSON object of FXencoderConfig fields, e.g. "
                         "'{\"channels\": [8, 16], \"kernels\": [25, 15], \"strides\": [4, 4], "
@@ -125,8 +146,20 @@ def main(argv=None) -> int:
         p.error(f"--data_dir {args.data_dir}: not a directory")
     if args.model == "converter" and args.encoder_ckpt is None:
         p.error("converter training requires --encoder_ckpt")
-    resolve_device(args.device)  # no card: raise before reading any checkpoint
+    if not (args.device in ("cuda", "cpu") or args.device.startswith("cuda:")):
+        p.error(f"--device {args.device}: cuda, cuda:K or cpu")
+    # no card: raise before reading any checkpoint
+    started = not dist.is_initialized()
+    device = init_process_group_from_env(args.device, args.dist_backend)
+    try:
+        return _train(args, device)
+    finally:
+        if started and dist.is_initialized():  # the group this call started
+            dist.destroy_process_group()
 
+
+def _train(args, device) -> int:
+    """Build the configs from ``args`` and run the model's trainer."""
     enc_cfg = _config(FXencoderConfig, args.encoder_config)
     tcfg = TrainConfig(
         segment_length=args.segment_length,
@@ -152,7 +185,8 @@ def main(argv=None) -> int:
         save_every=args.save_every,
         val_every=args.val_every,
         val_items=args.val_items,
-        device=args.device,
+        device=device,
+        use_mesh=not args.no_mesh,
     )
     if args.model == "converter":
         from ..models import FXencoder

@@ -5,20 +5,25 @@ Counterpart of ``music_mixing_style_transfer_tpu/train/converter.py``
 triplet ``(A1 input, A2 ground truth, B2 reference)`` in which A2 and B2
 got the same random FX; the TCN converts A1 conditioned on
 ``FXencoder(B2)`` and learns from the multi-scale mid/side spectral loss
-plus the RMS gain loss. One process; the data-parallel steps
-(``make_sharded_converter_step``) wait for the port's DDP item (ROADMAP).
+plus the RMS gain loss. Data parallel over a process group (JAX
+``make_sharded_converter_step``): each rank its share of the triplets,
+the converter under DDP, and the gradients, BN's running statistics and
+the loss averaged over the ranks; the frozen encoder has no gradients and
+is not wrapped.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import TCNConfig, TrainConfig
 from ..losses import multiscale_spectral_midside, multiscale_spectral_stereo, rms_loss
 from ..models import FXencoder, MixFXcloner
 from ..models.fast_init import fast_init
+from ..parallel.collectives import DataParallel, all_reduce_mean_, average_bn_stats_
 from ..utils.device import full_float32, resolve_device
 from .contrastive import compute_context
 from .state import TrainState, make_lr_schedule, make_optimizer
@@ -62,12 +67,20 @@ def make_converter_train_step(
     rms_weight: float = 0.1,
     compute_dtype: str = "float32",
     ori_weight: float = 0.0,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
     """``step(state, encoder, a1, a2, b2) -> (state, loss)``: one update of
     ``state.model`` (training mode) by ``state.optimizer`` at the
     schedule's learning rate for ``state.step``, against the frozen
     ``encoder``. The loss comes back detached, on the device. cuDNN and
-    matmuls run with TF32 off, as in the contrastive step."""
+    matmuls run with TF32 off, as in the contrastive step.
+
+    With ``group`` (the twin of JAX ``make_sharded_converter_step``): each
+    rank passes its own triplets, the converter runs under DDP (its
+    gradients averaged over the ranks), and after the update BN's running
+    statistics and the returned loss are the means over the ranks (JAX's
+    ``pmean`` of grads, ``new_stats`` and loss)."""
+    wrap = DataParallel(group)
 
     def step(state: TrainState, encoder: FXencoder, a1, a2, b2):
         model, opt = state.model, state.optimizer
@@ -75,12 +88,16 @@ def make_converter_train_step(
         state.set_lr()
         opt.zero_grad(set_to_none=True)
         with full_float32():
-            loss = converter_loss_fn(model, encoder, a1, a2, b2, rms_weight, compute_dtype,
+            loss = converter_loss_fn(wrap(model), encoder, a1, a2, b2, rms_weight, compute_dtype,
                                      ori_weight)
             loss.backward()
         opt.step()
+        loss = loss.detach()
+        if group is not None:
+            average_bn_stats_(model, group)
+            all_reduce_mean_([loss], group)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step
 

@@ -16,17 +16,24 @@ and takes the train step:
 
 Numerics are the generic path's (``fast=False``, one chain per
 instrument): the fast path is an evaluation-strategy change
-(``tests/test_torch_fastpath.py``). Reference semantics:
+(``tests/test_torch_fastpath.py``).
+
+With a process group (JAX's mesh branches, ``make_sharded_fused_*``),
+each rank augments only its own items (K2 on its own lanes) and trains on
+them through the data-parallel step; :meth:`_FusedPipeline.shard` gives a
+rank its block of a global batch, with JAX's error when the world size
+does not divide it. Reference semantics:
 ``data_loader.py:115-348`` (contrastive pairs), ``:356-539`` (triplets),
 ``:33-102`` (the variable-length collate).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..fx.chain import AugmentationChain, plan_to
 from ..fx.fastpath import augment_contrastive_views, augment_triplets
@@ -58,12 +65,29 @@ class _FusedPipeline:
     in ``last_split``. ``fast``: the batched walk over all instruments
     (``fx/fastpath.py``), else one chain per instrument."""
 
-    def __init__(self, compute_dtype: str, device, fast: bool):
+    def __init__(self, compute_dtype: str, device, fast: bool,
+                 group: Optional[dist.ProcessGroup] = None):
         self.compute_dtype = compute_dtype
         self.fast = fast
         self.device = resolve_device(device)
+        self.group = group
         self._chains = None
         self.last_split: Dict[str, float] = {}
+
+    def shard(self, items: int, views: int) -> Tuple[slice, slice]:
+        """This rank's contiguous blocks of a global batch of ``items``
+        items and their ``views`` (items * K) crop starts; the whole batch
+        without a group. Raises JAX's ``ValueError`` (JAX
+        ``fused.py:299-305``) unless the world size divides both."""
+        if self.group is None:
+            return slice(0, items), slice(0, views)
+        n, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        if items % n or views % n:
+            raise ValueError(
+                f"mesh size {n} must divide both batch items ({items}) and items*K ({views})"
+            )
+        i, v = items // n, views // n
+        return slice(rank * i, (rank + 1) * i), slice(rank * v, (rank + 1) * v)
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (nothing on the CPU)."""
@@ -100,13 +124,16 @@ class FusedContrastivePipeline(_FusedPipeline):
     probability scheduling the plans carry the epoch's gates). ``step``
     takes a raw batch from ``ContrastivePairDataset.sample_raw_batch`` and
     the crop plan from ``collate_plan``: ``step(state, segs, plans, sa, sb,
-    la, lb)``."""
+    la, lb)``. With ``group``, each rank passes its own items and their
+    crop starts (``shard``); NT-Xent's negatives are every rank's and the
+    loss is the global one. ``loss`` (validation) stays on the calling
+    rank, over the whole batch it is given."""
 
     def __init__(self, temperature: float = 0.1, compute_dtype: str = "float32", device="cuda",
-                 fast: bool = True):
-        super().__init__(compute_dtype, device, fast)
+                 fast: bool = True, group: Optional[dist.ProcessGroup] = None):
+        super().__init__(compute_dtype, device, fast, group)
         self.temperature = temperature
-        self._step = make_contrastive_train_step(temperature, compute_dtype)
+        self._step = make_contrastive_train_step(temperature, compute_dtype, group)
 
     def set_chains(self, manipulators: Dict[str, AugmentationChain], instruments: Sequence[str],
                    pad: int) -> None:
@@ -146,14 +173,17 @@ class FusedConverterPipeline(_FusedPipeline):
     segs, plans)`` takes a raw batch from
     ``StyleTransferTripletDataset.sample_raw_batch``.
     The encoder moves to the pipeline's device, in eval mode, without
-    gradients (``train/converter.py:frozen``)."""
+    gradients (``train/converter.py:frozen``). With ``group``, each rank
+    passes its own items (``shard(items, items)``) and the step's loss is
+    the mean over the ranks; ``loss`` stays on the calling rank."""
 
     def __init__(self, encoder: FXencoder, rms_weight: float = 0.1, compute_dtype: str = "float32",
-                 ori_weight: float = 0.0, device="cuda", fast: bool = True):
-        super().__init__(compute_dtype, device, fast)
+                 ori_weight: float = 0.0, device="cuda", fast: bool = True,
+                 group: Optional[dist.ProcessGroup] = None):
+        super().__init__(compute_dtype, device, fast, group)
         self.encoder = frozen(encoder.to(self.device))
         self.rms_weight, self.ori_weight = rms_weight, ori_weight
-        self._step = make_converter_train_step(rms_weight, compute_dtype, ori_weight)
+        self._step = make_converter_train_step(rms_weight, compute_dtype, ori_weight, group)
 
     def set_chains(self, manipulators: Dict[str, AugmentationChain], instruments: Sequence[str],
                    pad: int, seg_len: int) -> None:

@@ -13,8 +13,16 @@ Counterpart of ``music_mixing_style_transfer_tpu/train/loop.py``:
 - checkpoints with retention and resume (``train/checkpoint.py``), and a
   deterministic held-out loss.
 
-One process on one card; the data-parallel variants wait for the port's
-DDP item (ROADMAP).
+Data parallel when ``torch.distributed`` is initialized (``torchrun``;
+JAX ``loop.py:135-162,367-400``, whose trainers take every local device's
+mesh): each rank reads and augments only its block of every global batch
+and trains through the data-parallel step; the crop plan is drawn for the
+global batch on every rank from the same seed, so a W-rank epoch sees the
+items, FX plans and crops of the one-process epoch. Rank 0 alone runs the
+held-out loss (on the whole validation batch, as the one-process run does)
+and writes ``metrics.jsonl``, the logs' epoch lines and the checkpoints;
+the other ranks wait for it at a barrier. Every rank resumes from the
+same checkpoint.
 """
 from __future__ import annotations
 
@@ -25,12 +33,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import FXencoderConfig, TCNConfig, TrainConfig
 from ..data.datasets import ContrastivePairDataset, StyleTransferTripletDataset
 from ..data.prefetch import BatchPrefetcher
 from ..models import FXencoder
 from ..ops.cuda.envelope import compressor_envelope
+from ..parallel.mesh import Ranks, rank_device
 from ..utils.device import resolve_device
 from ..utils.logging import Timer, get_logger
 from .checkpoint import CheckpointManager
@@ -40,6 +50,42 @@ from .fused import FusedContrastivePipeline, FusedConverterPipeline
 from .state import current_lr
 
 log = get_logger("train")
+
+NO_MESH = ("use_mesh=False (--no_mesh) trains on one device, but this process is one of {} "
+           "ranks: launch one process (no torchrun) for a single-device run; W ranks never "
+           "train W independent models")
+
+
+def _ranks_and_device(use_mesh: bool, device):
+    """This process's ranks and device: with a process group, a bare
+    ``"cuda"`` is ``cuda:LOCAL_RANK`` (``parallel/mesh.py:rank_device``)."""
+    ranks = Ranks.current()
+    if ranks.parallel and not use_mesh:
+        raise ValueError(NO_MESH.format(ranks.world_size))
+    return ranks, rank_device(device) if ranks.group is not None else resolve_device(device)
+
+
+def _end_epoch(ranks: Ranks, dev: torch.device, out_dir: str, record: Dict, mgr, epoch: int,
+               state, save: bool):
+    """Rank 0 appends the epoch's record and saves its checkpoint; every
+    rank then meets at a barrier. Under a process group the record also
+    holds ``world_size`` and, under ``ranks``, each rank's peak device
+    memory (GB since the process started; ``None`` on the CPU) and K2
+    launches over the epoch (its steps, and rank 0's validation)."""
+    if ranks.group is not None:
+        mine = {
+            "max_memory_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else None),
+            "compressor_envelope": record["launches"]["compressor_envelope"],
+        }
+        per_rank = [None] * ranks.world_size
+        dist.all_gather_object(per_rank, mine, group=ranks.group)
+        record["world_size"], record["ranks"] = ranks.world_size, per_rank
+    if ranks.is_main:
+        _log_metrics(out_dir, record)
+        if save:
+            mgr.save(epoch + 1, state)
+    ranks.barrier()
 
 
 def _val_mode(data_dir: str) -> Optional[str]:
@@ -106,14 +152,14 @@ def _run_steps(pipeline, state, make_batch, steps_per_epoch: int):
     return state, float(torch.stack(losses).mean()), timer, timed, synced
 
 
-def _epoch_record(model: str, epoch: int, loss: float, lr: float, timer, timed, synced,
-                  epoch_t0: float, launches0: int, val_launches0: int, val_loss, ds,
+def _epoch_record(ranks: Ranks, model: str, epoch: int, loss: float, lr: float, timer, timed,
+                  synced, epoch_t0: float, launches0: int, val_launches0: int, val_loss, ds,
                   ds_val) -> Dict:
     """The epoch's ``metrics.jsonl`` record: the JAX package's keys
     (``model``, ``epoch``, ``loss``, ``lr``, ``wall``, ``time``,
     ``val_loss``), the K2 launches under ``launches``, and under ``reader``
     each split's segment reader (``"native"`` or ``"wavio"``; ``val`` is
-    ``None`` without a held-out split)."""
+    ``None`` without a held-out split). Rank 0 alone logs it."""
     wall = {k: round(v, 3) for k, v in timer.totals.items()}
     wall["host"] = round(timed.seconds, 3)
     wall["epoch"] = round(time.perf_counter() - epoch_t0, 3)
@@ -137,11 +183,12 @@ def _epoch_record(model: str, epoch: int, loss: float, lr: float, timer, timed, 
     }
     if val_loss is not None:
         record["val_loss"] = val_loss
-    log.info(
-        "epoch %d  %s loss=%.4f%s  (%s)", epoch, model, loss,
-        "" if val_loss is None else f"  val={val_loss:.4f}",
-        "  ".join(f"{k}={v}s" for k, v in wall.items()),
-    )
+    if ranks.is_main:
+        log.info(
+            "epoch %d  %s loss=%.4f%s  (%s)", epoch, model, loss,
+            "" if val_loss is None else f"  val={val_loss:.4f}",
+            "  ".join(f"{k}={v}s" for k, v in wall.items()),
+        )
     return record
 
 
@@ -163,9 +210,12 @@ def train_fxencoder(
     save_every: int = 1,
     val_items: int = 2,
     device="cuda",
+    use_mesh: bool = True,
 ):
     """Contrastive FXencoder training on ``device`` (the card unless the
-    caller asks for the CPU). Returns the final ``TrainState``.
+    caller asks for the CPU), data parallel over the process group when
+    there is one (the module docstring); ``use_mesh=False`` (the JAX flag)
+    raises there. Returns the final ``TrainState``.
 
     Both ``fused=False`` and ``fused=True`` augment on the device, and give
     the same numbers: ``fused=True`` walks all instruments' chains in one
@@ -191,22 +241,24 @@ def train_fxencoder(
     synced seconds (``synced_step``, the epoch's second step, or its only
     one, run alone on the device) split into augmentation and train step,
     each ending in a synchronize."""
-    dev = resolve_device(device)
+    ranks, dev = _ranks_and_device(use_mesh, device)
     tcfg = train_cfg or TrainConfig()
+    K = tcfg.num_strong_negatives + 1
     _, state, _ = init_contrastive(encoder_cfg, tcfg, seed=tcfg.seed, device=dev)
     pipeline = FusedContrastivePipeline(tcfg.temperature, tcfg.compute_dtype, device=dev,
-                                        fast=fused)
+                                        fast=fused, group=ranks.group)
+    pipeline.shard(batch_items, batch_items * K)  # JAX's error before any read
 
     mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), keep=keep_ckpts)
     start_epoch = 0
     if resume and mgr.latest_step() is not None:
         state = mgr.restore(state)
         start_epoch = int(mgr.latest_step())
-        log.info("resumed from epoch %d", start_epoch)
+        if ranks.is_main:
+            log.info("resumed from epoch %d", start_epoch)
 
     initial_probs = dict(tcfg.apply_prob)
     final_probs = {k: (prob_schedule_target or {}).get(k, v) for k, v in initial_probs.items()}
-    K = tcfg.num_strong_negatives + 1
 
     # held-out validation: deterministic seeds + END-of-schedule probs
     val_mode = _val_mode(data_dir) if val_every else None
@@ -248,25 +300,27 @@ def train_fxencoder(
         epoch_t0, launches0 = time.perf_counter(), compressor_envelope.launches
 
         def make_batch(step):
+            # the global batch's crop plan on every rank, then this rank's block
             idxs = list(range(step * batch_items, (step + 1) * batch_items))
-            segs, plans = ds.sample_raw_batch(idxs, epoch_seed=tcfg.seed + epoch)
             la, lb, sa, sb = ds.collate_plan(len(idxs) * K, rng, collate_quantum)
-            return segs, plans, sa, sb, la, lb
+            items, views = pipeline.shard(len(idxs), len(sa))
+            segs, plans = ds.sample_raw_batch(idxs[items], epoch_seed=tcfg.seed + epoch)
+            return segs, plans, sa[views], sb[views], la, lb
 
         state, epoch_loss, timer, timed, synced = _run_steps(pipeline, state, make_batch,
                                                              steps_per_epoch)
         val_launches0 = compressor_envelope.launches
         val_loss = (
             compute_val(state)
-            if ds_val is not None and (epoch + 1) % max(val_every, 1) == 0
+            if ranks.is_main and ds_val is not None and (epoch + 1) % max(val_every, 1) == 0
             else None
         )
-        record = _epoch_record("fxencoder", epoch, epoch_loss, current_lr(tcfg, state.step), timer,
-                               timed, synced, epoch_t0, launches0, val_launches0, val_loss, ds, ds_val)
+        record = _epoch_record(ranks, "fxencoder", epoch, epoch_loss, current_lr(tcfg, state.step),
+                               timer, timed, synced, epoch_t0, launches0, val_launches0, val_loss,
+                               ds, ds_val)
         record["probs"] = {k: round(v, 4) for k, v in probs.items()}
-        _log_metrics(out_dir, record)
-        if (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1:
-            mgr.save(epoch + 1, state)
+        _end_epoch(ranks, dev, out_dir, record, mgr, epoch, state,
+                   (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1)
 
     return state
 
@@ -289,10 +343,14 @@ def train_converter(
     val_items: int = 2,
     ori_weight: float = 0.0,
     device="cuda",
+    use_mesh: bool = True,
 ):
     """Converter training on ``device`` (the card unless the caller asks
     for the CPU) against the frozen pretrained ``encoder`` (SURVEY.md §3.5;
-    JAX ``train/loop.py:329-540``). Returns the final ``TrainState``.
+    JAX ``train/loop.py:329-540``), data parallel over the process group
+    when there is one, as :func:`train_fxencoder`: each rank trains on its
+    block of every batch's items, and the epoch's ``loss`` is the mean over
+    the ranks. Returns the final ``TrainState``.
 
     ``encoder``: an ``FXencoder`` holding the pretrained weights (a
     published ``.pt`` or ``train_fxencoder``'s ``<out>/ckpt/step_<n>.pt``,
@@ -312,7 +370,7 @@ def train_converter(
     ``epoch``, ``loss``, ``lr``, ``wall``, ``time``, ``val_loss``) and the
     K2 launches, with the synced step split as in :func:`train_fxencoder`.
     On the card it first empties the allocator's cache."""
-    dev = resolve_device(device)
+    ranks, dev = _ranks_and_device(use_mesh, device)
     if dev.type == "cuda":
         # start from an empty allocator cache, as a new process does, whatever an
         # earlier run in this process left cached (~60 GB after a float32 converter run)
@@ -331,7 +389,8 @@ def train_converter(
     if resume and mgr.latest_step() is not None:
         state = mgr.restore(state)
         start_epoch = int(mgr.latest_step())
-        log.info("resumed from epoch %d", start_epoch)
+        if ranks.is_main:
+            log.info("resumed from epoch %d", start_epoch)
 
     def dataset(mode):  # the converter keeps its FX probabilities fixed
         return StyleTransferTripletDataset(
@@ -339,14 +398,15 @@ def train_converter(
             apply_prob_dict=dict(tcfg.apply_prob), reverb_prob=dict(tcfg.reverb_prob), device=dev,
         )
 
-    def pipeline_for(ds):
+    def pipeline_for(ds, group=None):
         pipe = FusedConverterPipeline(encoder, compute_dtype=tcfg.compute_dtype,
-                                      ori_weight=ori_weight, device=dev, fast=fused)
+                                      ori_weight=ori_weight, device=dev, fast=fused, group=group)
         pipe.set_chains(ds.manipulators, ds.instruments, ds.pad, tcfg.segment_length)
         return pipe
 
     ds = dataset("train")
-    pipeline = pipeline_for(ds)
+    pipeline = pipeline_for(ds, ranks.group)
+    pipeline.shard(batch_items, batch_items)  # JAX's error before any read
 
     # held-out validation: deterministic seeds, the train-mode loss
     val_mode = _val_mode(data_dir) if val_every else None
@@ -368,21 +428,22 @@ def train_converter(
 
         def make_batch(step):
             idxs = list(range(step * batch_items, (step + 1) * batch_items))
-            return ds.sample_raw_batch(idxs, epoch_seed=tcfg.seed + epoch)
+            items, _ = pipeline.shard(len(idxs), len(idxs))
+            return ds.sample_raw_batch(idxs[items], epoch_seed=tcfg.seed + epoch)
 
         state, epoch_loss, timer, timed, synced = _run_steps(pipeline, state, make_batch,
                                                              steps_per_epoch)
         val_launches0 = compressor_envelope.launches
         val_loss = (
             compute_val(state)
-            if ds_val is not None and (epoch + 1) % max(val_every, 1) == 0
+            if ranks.is_main and ds_val is not None and (epoch + 1) % max(val_every, 1) == 0
             else None
         )
-        _log_metrics(out_dir, _epoch_record(
-            "converter", epoch, epoch_loss, current_lr(tcfg, state.step), timer, timed, synced,
+        record = _epoch_record(
+            ranks, "converter", epoch, epoch_loss, current_lr(tcfg, state.step), timer, timed, synced,
             epoch_t0, launches0, val_launches0, val_loss, ds, ds_val,
-        ))
-        if (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1:
-            mgr.save(epoch + 1, state)
+        )
+        _end_epoch(ranks, dev, out_dir, record, mgr, epoch, state,
+                   (epoch + 1) % max(save_every, 1) == 0 or epoch == epochs - 1)
 
     return state

@@ -575,3 +575,62 @@ def test_time_fx_card_matches_cpu(card):
         got = fx.apply(params, x.to(card)).cpu()
         assert got.shape == cpu.shape == (2, T)
         assert (got - cpu).abs().max().item() <= 1e-4 * cpu.abs().max().item(), (fx.name, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sequence_parallel_runs_k1_on_halo_chunks(card, n):
+    """``infer/seqpar.py`` on a mesh of n entries of the one card: K1 runs
+    on each shard's extended chunk (one launch a shard for the one
+    128-channel block of dilation 8), and the result equals one forward
+    within 1e-5 of its max."""
+    from music_mixing_style_transfer_tpu_torch.config import TCNConfig
+    from music_mixing_style_transfer_tpu_torch.infer.seqpar import make_seq_parallel_converter
+    from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.parallel import create_mesh
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    model = fast_init(MixFXcloner(TCNConfig(condition_dimension=16, nblocks=4, kernel_size=15)),
+                      seed=n).to(card).eval()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal((2, 2, 4096)) * 0.3).astype(np.float32)).to(card)
+    cond = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32)).to(card)
+    with full_float32(), torch.inference_mode():
+        single = model(x, cond)
+    fn = make_seq_parallel_converter(model, create_mesh(n, ["cuda:0"] * n))
+    before = tcn_block.launches
+    out = fn(x.transpose(1, 2), cond).transpose(1, 2)
+    assert tcn_block.launches - before == n
+    assert float((out - single).abs().max()) <= 1e-5 * float(single.abs().max())
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
+    """Two ranks of the data-parallel contrastive step on ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one device): the loss and the averaged
+    gradients equal the one-process step's on the card (no BN: per-rank
+    batch statistics differ by design), within 1e-5."""
+    from torch_ddp_workers import _plain_weights, card_contrastive_step, run_ranks
+
+    from music_mixing_style_transfer_tpu_torch.config import FXencoderConfig
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder
+    from music_mixing_style_transfer_tpu_torch.train.contrastive import contrastive_loss_fn
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    fields = dict(channels=(8, 16), kernels=(25, 15), strides=(4, 4), dilation=(1, 1), norm="none")
+    rng = np.random.default_rng(0)
+    a, b = ((rng.standard_normal((2, 4, 2, 4096)) * 0.2).astype(np.float32) for _ in range(2))
+    ranks = run_ranks(card_contrastive_step, 2, str(tmp_path), (fields, a, b), timeout=180)
+    model = FXencoder(FXencoderConfig(**fields))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in _plain_weights(fields).items()})
+    model = model.to(card).train()
+    with full_float32():
+        loss = contrastive_loss_fn(model, torch.from_numpy(a).to(card), torch.from_numpy(b).to(card), 0.1)
+        loss.backward()
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        assert abs(r["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+        for name, p in model.named_parameters():
+            want = p.grad.cpu().numpy()
+            assert np.abs(r["grads"][name] - want).max() <= 1e-5 * np.abs(want).max(), name
