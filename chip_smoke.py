@@ -129,7 +129,32 @@ non-zero:
    step at full width, one rank over NCCL (FSDP2 over gloo with CUDA
    tensors killed its rank on the card), against the replicated step from
    the same weights (1e-4).
-14. the ``kernels`` line (launches of the main path, and per path under
+14. imager_rates: ``normalize_device`` at 48 kHz (the imager's Haas draw
+   at that rate) on 4 stems of 2^19 samples, one mono: the card (K2)
+   against the CPU's plain path (the same choices, 1e-4), and the mono stem
+   leaves with a side channel.
+15. checkpoints: full-width weights through three routes: a reference
+   ``.pt`` (A); that ``.pt`` through ``models/torch_import.py`` into a flax
+   archive ``.npz`` read by ``load_model_state`` (B); the archive through
+   ``models/convert_ckpt.py`` into a ``.pt`` (C). The state dicts
+   bit-equal; one normalized song through route B's engine equal to route
+   A's at 0 LSB (K1 11 launches, K2 4); a ``ckpt/`` directory of
+   ``step_<n>.pt`` loads its newest step.
+16. sefa: ``models/sefa.py`` edits on blocks 5 and 12 through the
+   full-width MixFXcloner on [4, 2, 2^19], float32 and bf16 (K1 11 launches
+   each, per-block conditions), against the block-by-block plain path; an
+   edit changes the output, a null edit does not.
+17. frontend: ``FrontEnd`` stereo ``cplx`` + ``mag`` on [2, 2, 2^19], the
+   ``BackEnd`` round trip and Griffin-Lim (32 iterations), card against CPU
+   (cuFFT; no kernel).
+18. parity_tools: ``tools/parity_check.py`` at full width, the port on the
+   card (K1) against the functional ``F.conv1d`` forward of the same state
+   dict: embedding cosine and waveform NRMSE.
+19. card_checks: ``tools/card_checks.py``'s full-model check (kernel path
+   vs plain path) and its bf16-vs-float32 fidelity at 2^19.
+20. demo: the port's ``examples/demo_style_transfer.py`` with its
+   defaults (15 s, bf16, normalized), its WAVs and launches.
+21. the ``kernels`` line (launches of the main path, and per path under
    ``launches_by_path``: each path runs with the counts set to 0 just
    before it and read just after; K2's ``fastpath``, ``triplet`` and
    ``blockwise`` hold its cases at those paths' shapes),
@@ -340,26 +365,6 @@ def float64_case(B: int, T: int, d: int, gen) -> dict:
     if not kernel_err <= F64_TOL * scale:
         raise AssertionError(f"tcn_block float32 is not float32-accurate against float64: {out}")
     return out
-
-
-def converter_plain(model, x, cond):
-    """MixFXcloner forward composed block by block here, with every fused
-    block through the kernel's plain version (never the kernel)."""
-    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block_reference
-
-    h = x.transpose(1, 2).contiguous()
-    for blk in model.blocks:
-        if blk.uses_kernel():
-            s, t = blk.bn.fold()
-            r, b = blk.film.rb(cond)
-            h = tcn_block_reference(
-                h, blk.conv1.weight.permute(2, 1, 0), s, t, r, b, blk.res.weight[:, 0, 0],
-                blk.dilation,
-            )
-        else:
-            h = blk(h, cond)
-    out = h @ model.output.weight[:, :, 0].T + model.output.bias
-    return out.transpose(1, 2).clamp(-1.0, 1.0)
 
 
 def synthetic_stems(rng, S: int, T: int) -> np.ndarray:
@@ -618,7 +623,7 @@ def phase_main_path():
     )
     from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
     from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
-    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import converter_plain, tcn_block
     from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
 
     rng = np.random.default_rng(SEED)
@@ -2117,6 +2122,375 @@ def phase_parallel(tmp: str):
     return paths
 
 
+IMAGER_SR = 48000             # imager_rates: a rate whose Haas draw is not 44.1 kHz's
+SEFA_EDITS = {5: (0, 3.0), 12: (1, -3.0)}  # sefa: (eigenvector, strength) on two fused blocks
+FRONTEND_TOL = 1e-5           # FrontEnd features and BackEnd waveforms, card vs CPU, over max|cpu|
+# Griffin-Lim, card vs CPU from one initial phase, over max|cpu|: each iteration's angle
+# is ill-conditioned where a bin is near 0; float32 vs float64 on the CPU reads ~1.6e-5
+# after 32 iterations at 2^17 samples of noise
+GRIFFIN_LIM_TOL = 1e-3
+GRIFFIN_LIM_ITERS = 32
+PARITY_COSINE = 0.99999       # parity_tools: the port's FXencoder vs the functional forward
+PARITY_NRMSE = 1e-4           # parity_tools: the port's converter (K1) vs the functional forward
+
+
+def phase_imager_rates():
+    """``normalize_device`` at 48 kHz (the default ``NormalizationConfig``
+    but the rate) on 4 stems of 2^19 samples, one of them mono so that the
+    imager stereoizes it with the Haas draw of that rate: the card (K2)
+    against the CPU's plain path, the same compression choices and the
+    stems within NORMALIZER_TOL; and the mono stem leaves with a side
+    channel (the Haas branch ran). Returns the card run's launches."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import NormalizationConfig
+    from music_mixing_style_transfer_tpu_torch.fx.processors import haas_params
+    from music_mixing_style_transfer_tpu_torch.normalize.batch import BatchedAudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.normalize.features import load_fx_features
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+
+    cfg = NormalizationConfig(sample_rate=IMAGER_SR)
+    features = load_fx_features(FEATURES, stems=cfg.stems)
+    insts = list(cfg.stems)
+    song = synthetic_stems(np.random.default_rng(SEED + 11), len(insts), T_SEG) / 32768.0
+    song[1, 1] = song[1, 0]  # bass: mono
+    fft = cfg.fft_size
+    x = torch.from_numpy(np.pad(song.astype(np.float32), ((0, 0), (0, 0), (fft, fft))))
+    card = BatchedAudioEffectsNormalizer(features, cfg, device="cuda")
+    cpu = BatchedAudioEffectsNormalizer(features, cfg, device="cpu")
+    lengths = [T_SEG] * len(insts)
+    with torch.inference_mode():
+        card.normalize_device(x[:, :, : 2 * fft + 8192].cuda(), insts, [8192] * len(insts))  # warm-up
+        xc = x.cuda()
+        torch.cuda.synchronize()
+        tcn_block.launches = compressor_envelope.launches = 0
+        t_card = time.perf_counter()
+        got = card.normalize_device(xc, insts, lengths)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t_card
+        launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+        got = got.cpu()
+        t_cpu = time.perf_counter()
+        want = cpu.normalize_device(x, insts, lengths)
+        cpu_s = time.perf_counter() - t_cpu
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    a, b = card.last_compression, cpu.last_compression
+    same = all(np.array_equal(a[k], b[k]) for k in ("ratio", "threshold", "active", "fallback"))
+    # the mono stem leaves with a side channel only if the Haas branch ran
+    mid, side = got[1, 0] + got[1, 1], got[1, 0] - got[1, 1]
+    side_share = float(side.pow(2).sum() / (mid.pow(2).sum() + side.pow(2).sum()))
+    emit("imager_rates", t0, sample_rate=IMAGER_SR, haas=haas_params(IMAGER_SR), shape=list(x.shape),
+         mono_stem=insts[1], card_s=card_s, cpu_s=cpu_s, max_abs_err=err, max_abs_ref=scale,
+         tol=NORMALIZER_TOL, same_choices=same, mono_stem_side_share=side_share,
+         tcn_block_launches=launches["tcn_block"],
+         compressor_envelope_launches=launches["compressor_envelope"])
+    if not (same and err <= NORMALIZER_TOL * scale and torch.isfinite(got).all()
+            and launches["compressor_envelope"] > 0 and launches["tcn_block"] == 0
+            and side_share > 1e-3):
+        raise AssertionError("normalize_device at 48 kHz on the card disagrees with the CPU")
+    return launches
+
+
+def phase_checkpoints(tmp: str):
+    """Weights through the three routes at full width. A: a reference-format
+    ``.pt``. B: that ``.pt`` -> ``models/torch_import.py`` -> a flax
+    archive (``.npz``) -> ``load_model_state``. C: the archive ->
+    ``models/convert_ckpt.py`` -> a ``.pt``. The three state dicts must be
+    bit-equal; one normalized song through engines built from route A and
+    from route B must be the same int16 (0 LSB), the route-B run counted;
+    and a ``ckpt/`` directory of ``step_<n>.pt`` loads its newest step.
+    Returns the route-B song's launches and route A's checkpoint paths."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.config import InferenceConfig
+    from music_mixing_style_transfer_tpu_torch.infer.pipeline import (
+        MixingStyleTransfer,
+        StyleTransferEngine,
+    )
+    from music_mixing_style_transfer_tpu_torch.models import FXencoder, MixFXcloner, torch_import
+    from music_mixing_style_transfer_tpu_torch.models.checkpoints import (
+        load_model_state,
+        save_flax_archive,
+    )
+    from music_mixing_style_transfer_tpu_torch.models.convert_ckpt import convert
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import seeded_model
+    from music_mixing_style_transfer_tpu_torch.models.weights import save_torch_state_dict
+    from music_mixing_style_transfer_tpu_torch.normalize import AudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.train.checkpoint import CheckpointManager
+    from music_mixing_style_transfer_tpu_torch.train.state import TrainState, make_optimizer
+
+    paths, equal, t_routes = {}, {}, time.perf_counter()
+    for name, cls, seed in (("fxencoder", FXencoder, SEED + 20), ("mixfxcloner", MixFXcloner, SEED + 21)):
+        m = seeded_model(cls, seed, randomize_bn=True)
+        a = os.path.join(tmp, f"{name}_a.pt")
+        save_torch_state_dict(m.state_dict(), a)
+        b = os.path.join(tmp, f"{name}_b.npz")
+        save_flax_archive(getattr(torch_import, f"load_{name}_variables")(a), b)
+        c = os.path.join(tmp, f"{name}_c.pt")
+        convert(name, b, c)
+        sds = {r: load_model_state(p, cls()).state_dict() for r, p in (("a", a), ("b", b), ("c", c))}
+        equal[name] = all(
+            sorted(sds[r]) == sorted(sds["a"]) and all(torch.equal(sds[r][k], v) for k, v in sds["a"].items())
+            for r in ("b", "c"))
+        equal[name] &= all(torch.equal(sds["a"][k], v) for k, v in m.state_dict().items())
+        paths[name] = {"a": a, "b": b, "c": c}
+        del m, sds
+    routes_s = time.perf_counter() - t_routes
+
+    rng = np.random.default_rng(SEED + 22)
+    song = synthetic_stems(rng, 4, T_SEG)
+    ref = synthetic_stems(rng, 4, T_SEG)
+    norm = AudioEffectsNormalizer(FEATURES)
+    mixes, launches = {}, None
+    for route in ("a", "b"):
+        eng = StyleTransferEngine(ckpt_path_enc=paths["fxencoder"][route],
+                                  ckpt_path_conv=paths["mixfxcloner"][route], seed=SEED)
+        pipe = MixingStyleTransfer(eng, InferenceConfig(normalize_input=True), normalizer=norm)
+        pipe.transfer_song_pcm(song[:, :, :8192], ref[:, :, :8192])  # warm-up, not counted
+        torch.cuda.synchronize()
+        tcn_block.launches = compressor_envelope.launches = 0
+        mixes[route], _ = pipe.transfer_song_pcm(song, ref)
+        if route == "b":
+            launches = {"tcn_block": tcn_block.launches,
+                        "compressor_envelope": compressor_envelope.launches}
+        del eng, pipe
+    lsb = int(np.abs(mixes["a"].astype(np.int32) - mixes["b"].astype(np.int32)).max())
+
+    ckpt = os.path.join(tmp, "run", "ckpt")
+    mgr, sd_new = CheckpointManager(ckpt, keep=2), None
+    for step, seed in ((1, SEED + 23), (2, SEED + 24)):
+        m = seeded_model(FXencoder, seed)
+        mgr.save(step, TrainState(step, m, make_optimizer(m.parameters())))
+        sd_new = m.state_dict()
+    loaded = load_model_state(ckpt, FXencoder()).state_dict()
+    newest = all(torch.equal(loaded[k], v) for k, v in sd_new.items())
+    emit("checkpoints", t0, routes_s=routes_s, state_dicts_bit_equal=equal,
+         archive_mb={n: os.path.getsize(p["b"]) / 1e6 for n, p in paths.items()},
+         song_lsb_route_b_vs_a=lsb, mix_peak=int(np.abs(mixes["b"].astype(np.int32)).max()),
+         ckpt_dir_steps=mgr.steps(), ckpt_dir_loads_newest=newest,
+         tcn_block_launches=launches["tcn_block"],
+         compressor_envelope_launches=launches["compressor_envelope"])
+    if not (all(equal.values()) and lsb == 0 and np.abs(mixes["b"]).max() > 0 and newest
+            and launches["tcn_block"] == 11 and launches["compressor_envelope"] >= 4):
+        raise AssertionError("the checkpoint routes failed their checks")
+    return launches, {n: p["a"] for n, p in paths.items()}
+
+
+def phase_sefa():
+    """``models/sefa.py``: edits on two fused blocks through the full-width
+    MixFXcloner on ``[4, 2, 2^19]``, float32 and bf16, each block taking its
+    own condition into K1 (11 launches a forward), held against the
+    block-by-block plain path (float32 within CONVERTER_TOL of max; bf16
+    NRMSE within BF16_TOL); an edit changes the output, a null edit does
+    not. Returns the two edited forwards' launches."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import seeded_model
+    from music_mixing_style_transfer_tpu_torch.models.sefa import (
+        film_edit_directions,
+        sefa_per_block_conditions,
+    )
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import converter_plain, tcn_block
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    base_model = seeded_model(MixFXcloner, SEED + 30, "cuda", randomize_bn=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn(MAIN_B, 2, T_SEG, device="cuda", generator=gen) * 0.3
+    cond = torch.randn(MAIN_B, 2048, device="cuda", generator=gen)
+    runs, launches, n_run = {}, {"tcn_block": 0, "compressor_envelope": 0}, []
+    with full_float32(), torch.inference_mode():
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            model = base_model.to(dtype)
+            c = cond.to(dtype)
+            conds = sefa_per_block_conditions(c, model, SEFA_EDITS)
+            xd = x.to(dtype)
+            torch.cuda.synchronize()
+            tcn_block.launches = compressor_envelope.launches = 0
+            t_run = time.perf_counter()
+            got = model(xd, conds)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            n = tcn_block.launches
+            n_run.append(n)
+            for k, v in (("tcn_block", n), ("compressor_envelope", compressor_envelope.launches)):
+                launches[k] += v
+            got = got.float()
+            want = converter_plain(model, xd, conds).float()
+            base = model(xd, c).float()
+            null = model(xd, sefa_per_block_conditions(c, model, {b: (e, 0.0) for b, (e, _) in
+                                                                   SEFA_EDITS.items()})).float()
+            diff = (got - want).double()
+            runs[name] = {
+                "forward_s": run_s, "tcn_block_launches": n,
+                "max_abs_err": float(diff.abs().max()), "max_abs_ref": float(want.abs().max()),
+                "nrmse": float(diff.pow(2).mean().sqrt() / want.double().pow(2).mean().sqrt()),
+                "edit_vs_base_max_abs_diff": float((got - base).abs().max()),
+                "null_edit_equals_base": bool(torch.equal(null, base)),
+            }
+            del got, want, base, null
+    vals, _ = film_edit_directions(base_model.blocks[5].film)
+    emit("sefa", t0, shape=[MAIN_B, 2, T_SEG], edits={str(b): e for b, e in SEFA_EDITS.items()},
+         block5_top_eigenvalues=[float(v) for v in vals[:3]], runs=runs,
+         tol={"float32_max_abs": CONVERTER_TOL, "bfloat16_nrmse": BF16_TOL})
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    ok = (n_run == [11, 11] and f32["max_abs_err"] <= CONVERTER_TOL * max(f32["max_abs_ref"], 1e-6)
+          and bf16["nrmse"] <= BF16_TOL
+          and all(r["edit_vs_base_max_abs_diff"] > 1e-3 and r["null_edit_equals_base"]
+                  for r in runs.values()))
+    if not ok:
+        raise AssertionError(f"SeFa-edited conversion failed its checks: {runs}")
+    return launches
+
+
+def phase_frontend():
+    """``models/frontend.py`` on the card against the CPU: ``FrontEnd``
+    stereo in ``cplx`` and ``mag`` on ``[2, 2, 2^19]``, the ``BackEnd``'s
+    ``cplx`` round trip, and Griffin-Lim (32 iterations) on one channel's
+    magnitude from one initial phase. cuFFT only: no kernel of the port."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.models.frontend import BackEnd, FrontEnd
+    from music_mixing_style_transfer_tpu_torch.ops.stft import hann_window, magnitude, stft
+
+    x = torch.from_numpy(synthetic_stems(np.random.default_rng(SEED + 40), 2, T_SEG) / 32768.0).float()
+    fe, be, mono = FrontEnd("stereo"), BackEnd("stereo"), BackEnd("mono")
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev)
+        t_dev = time.perf_counter()
+        feats = fe(xd, ["cplx", "mag"])
+        wave = be.cplx_to_wave(feats[:, :4])
+        spec = stft(xd[:1, 0], fe.n_fft, fe.hop_length, hann_window(fe.n_fft), center=True)
+        mag = magnitude(spec.transpose(-1, -2))
+        if dev == "cuda":
+            phase0 = -np.pi + 2 * np.pi * torch.rand(
+                mag.shape, generator=torch.Generator().manual_seed(SEED + 41))
+        gl = mono.griffin_lim(mag, GRIFFIN_LIM_ITERS, init_phase=phase0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t_dev
+        out[dev] = {"features": feats.cpu(), "wave": wave.cpu(), "griffin_lim": gl.cpu()}
+
+    def rel(k):
+        a, b = out["cuda"][k], out["cpu"][k]
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    errs = {k: rel(k) for k in ("features", "wave", "griffin_lim")}
+    n = x.shape[-1]
+    recon = float((out["cuda"]["wave"][..., 512 : n - 2048] - x[..., 512 : n - 2048]).pow(2).mean().sqrt())
+    emit("frontend", t0, shape=list(x.shape), features_shape=list(out["cuda"]["features"].shape),
+         griffin_lim_iters=GRIFFIN_LIM_ITERS, card_s=secs["cuda"], cpu_s=secs["cpu"],
+         rel_err=errs, tol={"features": FRONTEND_TOL, "wave": FRONTEND_TOL,
+                            "griffin_lim": GRIFFIN_LIM_TOL},
+         cplx_round_trip_rms_err=recon)
+    ok = (errs["features"] <= FRONTEND_TOL and errs["wave"] <= FRONTEND_TOL
+          and errs["griffin_lim"] <= GRIFFIN_LIM_TOL and recon < 0.02
+          and all(torch.isfinite(v).all() for v in out["cuda"].values()))
+    if not ok:
+        raise AssertionError(f"FrontEnd/BackEnd on the card disagree with the CPU: {errs}, {recon}")
+    return {"tcn_block": 0, "compressor_envelope": 0}
+
+
+def phase_parity_tools(tmp: str, ckpts: dict):
+    """``tools/parity_check.py`` at full width on the card: the port's
+    FXencoder from the ``checkpoints`` phase's route-A ``.pt`` and a
+    MixFXcloner ``.pt`` (output layer scaled by 0.01 so the clamp does not
+    hide a difference) against the functional forward on the same state
+    dict, one stereo segment of 2^19 samples. Returns the converter check's
+    launches (K1 in the port's forward; the functional forward is cuDNN)."""
+    t0 = time.perf_counter()
+    import torch
+
+    from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import seeded_model
+    from music_mixing_style_transfer_tpu_torch.models.weights import save_torch_state_dict
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.tools import parity_check
+
+    conv = seeded_model(MixFXcloner, SEED + 50, randomize_bn=True)
+    with torch.no_grad():
+        conv.output.weight.mul_(0.01)
+        conv.output.bias.mul_(0.01)
+    conv_pt = os.path.join(tmp, "parity_conv.pt")
+    save_torch_state_dict(conv.state_dict(), conv_pt)
+    rng = np.random.default_rng(SEED + 51)
+    x = (rng.standard_normal((1, 2, T_SEG)) * 0.1).astype(np.float32)
+    cond = rng.standard_normal((1, 2048)).astype(np.float32)
+    enc = parity_check.check_encoder(ckpts["fxencoder"], x)
+    tcn_block.launches = compressor_envelope.launches = 0
+    t_conv = time.perf_counter()
+    converter = parity_check.check_converter(conv_pt, x, cond)
+    conv_s = time.perf_counter() - t_conv
+    launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+    emit("parity_tools", t0, fxencoder=enc, mixfxcloner=converter, converter_check_s=conv_s,
+         tol={"embedding_cosine_min": PARITY_COSINE, "nrmse": PARITY_NRMSE},
+         tcn_block_launches=launches["tcn_block"])
+    if not (enc["embedding_cosine_min"] >= PARITY_COSINE and converter["nrmse"] <= PARITY_NRMSE
+            and converter["max_abs_ref"] < 1.0 and launches["tcn_block"] == 11):
+        raise AssertionError("parity_check at full width failed its checks")
+    return launches
+
+
+def phase_card_checks():
+    """``tools/card_checks.py``'s full-model check (kernel path vs plain
+    path, float32 and bf16) and its bf16-vs-float32 fidelity check at
+    ``SEG = 2^19`` (its per-dilation check is ``kernel_vs_plain``'s).
+    Returns their launches."""
+    t0 = time.perf_counter()
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+    from music_mixing_style_transfer_tpu_torch.tools import card_checks
+
+    tcn_block.launches = compressor_envelope.launches = 0
+    # seeded noise, never a reference checkout's samples: what this gate compares is fixed
+    full = card_checks.check_full_model(reference_root=None)
+    fidelity = card_checks.check_bf16_fidelity(reference_root=None)
+    launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+    emit("card_checks", t0, segment_length=card_checks.SEG, full_model=full,
+         bf16_fidelity=fidelity, tcn_block_launches=launches["tcn_block"])
+    if not (full["pass"] and fidelity["pass"] and launches["tcn_block"] == 44):
+        raise AssertionError(f"card_checks failed: {full}, {fidelity}, {launches}")
+    return launches
+
+
+def phase_demo(tmp: str):
+    """The port's demo end to end on the card with its defaults (15 s, bf16,
+    segments of 2^17, FX normalization): the WAVs it writes and its
+    launches."""
+    t0 = time.perf_counter()
+    from music_mixing_style_transfer_tpu_torch.data.wavio import read_wav_stereo_ct
+    from music_mixing_style_transfer_tpu_torch.examples import demo_style_transfer
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.envelope import compressor_envelope
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import tcn_block
+
+    out = os.path.join(tmp, "demo")
+    tcn_block.launches = compressor_envelope.launches = 0
+    rc = demo_style_transfer.main(["--out", out])
+    launches = {"tcn_block": tcn_block.launches, "compressor_envelope": compressor_envelope.launches}
+    song = os.path.join(out, "song1")
+    wavs = sorted(n for n in os.listdir(song) if n.endswith(".wav"))
+    mix = read_wav_stereo_ct(os.path.join(song, "mixture_output.wav"))
+    emit("demo", t0, returncode=rc, wavs=wavs, mix_shape=list(mix.shape),
+         mix_peak=float(np.abs(mix).max()), tcn_block_launches=launches["tcn_block"],
+         compressor_envelope_launches=launches["compressor_envelope"])
+    if not (rc == 0 and mix.shape == (2, int(SR * 15.0)) and np.isfinite(mix).all()
+            and np.abs(mix).max() > 0 and len(wavs) == 5
+            and launches["tcn_block"] > 0 and launches["compressor_envelope"] > 0):
+        raise AssertionError(f"the demo failed its checks: {wavs}, {launches}")
+    return launches
+
+
 def summary(cases) -> dict:
     """Per-launch numbers of ``cases`` (one dtype, one shape, every
     dilation): the largest error, and times and bounds averaged."""
@@ -2240,6 +2614,14 @@ def main() -> int:
     by_path.update(data_paths)
     with tempfile.TemporaryDirectory() as work:  # the multi-card paths' corpus and runs
         by_path.update(phase_parallel(work))
+    by_path["imager_rates"] = phase_imager_rates()
+    with tempfile.TemporaryDirectory() as work:  # the checkpoints of every route, the demo's songs
+        by_path["checkpoints"], ckpts = phase_checkpoints(work)
+        by_path["sefa"] = phase_sefa()
+        by_path["frontend"] = phase_frontend()
+        by_path["parity_tools"] = phase_parity_tools(work, ckpts)
+        by_path["card_checks"] = phase_card_checks()
+        by_path["demo"] = phase_demo(work)
     with full_float32():
         kernels = phase_kernels_line(launches, interp_cases, f64, env_launches, env, t_all, by_path,
                                      fastpath, triplet, blockwise)

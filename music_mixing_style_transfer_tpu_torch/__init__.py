@@ -13,6 +13,7 @@ stdlib only, never JAX or the JAX package.
 - ``normalize``: FX normalization, batched and per channel.
 - ``metrics`` and ``tools``: evaluation and the inference profiler.
 - ``data``: WAV I/O and song segmentation (numpy).
+- ``examples``: the demo (synthetic stems through the whole stack).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """

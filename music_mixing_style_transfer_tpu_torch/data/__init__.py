@@ -1,4 +1,11 @@
-from .wavio import read_wav, read_wav_stereo_ct, read_wav_stereo_ct_i16, wav_length, write_wav
+from .wavio import (
+    read_wav,
+    read_wav_stereo_ct,
+    read_wav_stereo_ct_i16,
+    total_wav_length,
+    wav_length,
+    write_wav,
+)
 from .segments import pad_to_batches, reassemble_song, segment_song, segment_song_halo
 from .datasets import ContrastivePairDataset, StyleTransferTripletDataset
 from .prep import fade_in, fade_out, load_ir_bank, load_wav_dir, random_trim, trim_silence
@@ -26,6 +33,7 @@ __all__ = [
     "read_wav_stereo_ct",
     "read_wav_stereo_ct_i16",
     "wav_length",
+    "total_wav_length",
     "write_wav",
     "segment_song",
     "segment_song_halo",

@@ -101,6 +101,11 @@ def wav_length(path: str) -> int:
     return _parse_header(path).n_frames
 
 
+def total_wav_length(paths) -> int:
+    """Frames summed over WAV files."""
+    return sum(wav_length(p) for p in paths)
+
+
 def read_wav(
     path: str,
     start: int = 0,

@@ -18,9 +18,10 @@ multiply from 32768 samples on), the compressor through the envelope
 wrapper (``ops/cuda/envelope.py``: K2 on the card), Freeverb as its exact
 transfer function at rfft bins.
 
-The FX normalizer's imager uses the Haas draw of ``PRNGKey(0)`` at 44.1
-kHz, kept as constants (``HAAS_PARAMS_44K``, pinned against JAX in
-``tests/test_torch_dsp.py``).
+The FX normalizer's imager uses the Haas draw of ``PRNGKey(0)``
+(``haas_params(sr)``): ``feedback`` and ``left`` do not depend on the rate,
+and ``delay`` is JAX's ``randint`` arithmetic on two fixed words at any
+rate (pinned against JAX in ``tests/test_torch_imager_rates.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,28 @@ HAAS_PARAMS_44K: Dict[str, object] = {
     "feedback": 0.3324069678783417,  # float32
     "left": False,
 }
+# The two uint32 words behind that draw's delay. Haas.sample splits
+# PRNGKey(0) in 3 and draws the delay as randint(k1, (), dmin, dmax + 1);
+# randint splits k1 in 2 and takes 32 random bits from each half (high word
+# first, then low word). Neither word depends on the rate: they are
+# jax.random.bits(split(split(PRNGKey(0), 3)[0])[i], (), uint32) for i = 0, 1
+# (JAX 0.9.0, threefry).
+HAAS_DELAY_WORDS = (1214273199, 447923887)
+
+
+def haas_params(sample_rate: int = 44100) -> Dict[str, object]:
+    """``Haas(sample_rate).sample(jax.random.PRNGKey(0))`` without JAX: the
+    delay is JAX's ``randint`` reduction of :data:`HAAS_DELAY_WORDS` onto
+    ``[int(-0.04 sr), int(0.04 sr)]`` in uint32 arithmetic,
+    ``dmin + ((hi % span) * m + lo % span) % span`` with
+    ``m = (2^16 % span)^2 % span``, the square wrapping at 2^32 as JAX's
+    does (it is 0 once ``span`` exceeds 2^16, from 819.2 kHz up)."""
+    haas = Haas(sample_rate)
+    span = (haas.dmax + 1 - haas.dmin) & 0xFFFFFFFF
+    hi, lo = HAAS_DELAY_WORDS
+    m = (((2**16 % span) ** 2) & 0xFFFFFFFF) % span
+    offset = ((((hi % span) * m) & 0xFFFFFFFF) + lo % span) & 0xFFFFFFFF
+    return {**HAAS_PARAMS_44K, "delay": haas.dmin + offset % span}
 
 
 def _uniform(gen: torch.Generator, n: int, lo: float, hi: float) -> torch.Tensor:

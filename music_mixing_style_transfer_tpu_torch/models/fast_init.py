@@ -38,3 +38,23 @@ def fast_init(module: nn.Module, seed: int = 0) -> nn.Module:
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
     return module
+
+
+@torch.no_grad()
+def seeded_model(cls, seed: int, device="cpu", dtype=torch.float32,
+                 randomize_bn: bool = False) -> nn.Module:
+    """``cls()`` at its default (published) widths with :func:`fast_init`
+    weights, in eval mode on ``device`` in ``dtype``. With ``randomize_bn``
+    the BN running statistics and scales are drawn too (from ``seed``), so
+    that a mapping that drops or swaps a BN tensor shows."""
+    with torch.device("meta"):
+        m = cls()
+    m = fast_init(m.to_empty(device="cpu"), seed=seed)
+    if randomize_bn:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        for mod in m.modules():
+            if isinstance(mod, nn.BatchNorm1d):
+                mod.running_mean.copy_(0.2 * (torch.rand(mod.running_mean.shape, generator=g) - 0.5))
+                mod.running_var.copy_(0.5 + torch.rand(mod.running_var.shape, generator=g))
+                mod.weight.copy_(0.5 + torch.rand(mod.weight.shape, generator=g))
+    return m.eval().to(device, dtype)

@@ -13,13 +13,15 @@
 - ``load_torch_state_dict`` reads a published reference checkpoint
   (``FXencoder_ps.pt``, ``MixFXcloner_ps.pt``): a state dict, possibly
   under a ``"model"`` key and with DDP ``module.`` prefixes
-  (JAX ``torch_import.py:20-39``).
+  (JAX ``torch_import.py:20-39``); ``save_torch_state_dict`` writes that
+  layout.
 
 State dicts carry BN's ``num_batches_tracked`` (0 here), as torch's
 ``BatchNorm1d`` and the published checkpoints do.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -105,3 +107,12 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
     return {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def save_torch_state_dict(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write ``state_dict`` in the published checkpoints' layout,
+    ``{"model": {"module.<name>": tensor}}`` (reference
+    ``modules/training_utils.py:13-29``), which :func:`load_torch_state_dict`
+    reads back."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model": {f"module.{k}": v for k, v in state_dict.items()}}, path)

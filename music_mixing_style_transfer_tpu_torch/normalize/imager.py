@@ -9,7 +9,7 @@ Counterpart of ``music_mixing_style_transfer_tpu/normalize/imager.py``
   4. balance mid/side again
 on ``[..., 2, T]`` audio with per-item targets (the JAX package vmaps over
 stems; here the stems are a batch axis). The Haas parameters are those of
-the JAX package's ``PRNGKey(0)`` draw, kept as constants for 44.1 kHz.
+the JAX package's ``PRNGKey(0)`` draw at ``sr`` (``fx/processors.py:haas_params``).
 """
 from __future__ import annotations
 
@@ -17,12 +17,7 @@ from typing import Tuple
 
 import torch
 
-from ..fx.processors import HAAS_PARAMS_44K, Haas, rms_normalize
-
-HAAS_RATE_NOT_PORTED = (
-    "the imager's Haas parameters are kept for 44100 Hz only; other sample "
-    "rates need the JAX PRNG draw, not yet ported (ROADMAP)"
-)
+from ..fx.processors import Haas, haas_params, rms_normalize
 
 
 def lr_to_ms(left: torch.Tensor, right: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,15 +52,13 @@ def normalize_imager(
     """Normalize the stereo image of ``audio [..., 2, T]`` to the target
     balance; ``target_side_mid_bal`` and ``mono_threshold`` are scalars or
     one value per leading item."""
-    if sr != 44100:
-        raise NotImplementedError(HAAS_RATE_NOT_PORTED)
     mono_threshold = torch.as_tensor(mono_threshold, dtype=audio.dtype, device=audio.device)
     mid, side = lr_to_ms(audio[..., 0, :], audio[..., 1, :])
     mid_e = (mid * mid).sum(-1)
     side_e = (side * side).sum(-1)
     is_mono = mid_e / (mid_e + side_e) > mono_threshold
 
-    stereoized = rms_normalize(audio, Haas().apply(HAAS_PARAMS_44K, audio))
+    stereoized = rms_normalize(audio, Haas(sr).apply(haas_params(sr), audio))
     audio = torch.where(is_mono[..., None, None], stereoized, audio)
 
     mid, side = lr_to_ms(audio[..., 0, :], audio[..., 1, :])

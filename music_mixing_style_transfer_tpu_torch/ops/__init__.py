@@ -1,4 +1,19 @@
-from .stft import frame, hann_window, istft, magnitude, sqrt_hann_window
+"""The port's DSP ops. As in the JAX package's ``ops/__init__``, minus the
+``stft`` function: here ``ops.stft`` stays the module (import the function
+from ``ops.stft``).
+"""
+from .stft import (
+    compute_istft,
+    compute_stft,
+    frame,
+    hann_window,
+    hamming_window,
+    istft,
+    magnitude,
+    overlap,
+    slicing,
+    sqrt_hann_window,
+)
 from .biquad import (
     rbj_poles,
     biquad_apply,
@@ -25,4 +40,10 @@ from .resample import (
     playback_speed,
     sinc_resample,
     time_stretch,
+)
+from .shapes import (
+    is_complete_convolution,
+    pad_to_length,
+    td_length_from_fd,
+    valid_length,
 )

@@ -69,6 +69,27 @@ def tcn_block_reference(x, w, s, t, r, b, wr, d: int) -> torch.Tensor:
     return block_epilogue(dilated_conv(xf, w.float(), d), xf, s, t, r, b, wr).to(x.dtype)
 
 
+def converter_plain(model, x: torch.Tensor, cond) -> torch.Tensor:
+    """Plain version of a whole MixFXcloner eval forward (``models/tcn.py``),
+    block by block, with every fused block through
+    :func:`tcn_block_reference` (never the kernel). ``x [B, 2, T]``;
+    ``cond`` is one condition ``[B, cond_dim]`` or a list of one a block."""
+    conds = cond if isinstance(cond, (list, tuple)) else [cond] * len(model.blocks)
+    h = x.transpose(1, 2).contiguous()
+    for blk, c in zip(model.blocks, conds):
+        if blk.uses_kernel():
+            s, t = blk.bn.fold()
+            r, b = blk.film.rb(c)
+            h = tcn_block_reference(
+                h, blk.conv1.weight.permute(2, 1, 0), s, t, r, b, blk.res.weight[:, 0, 0],
+                blk.dilation,
+            )
+        else:
+            h = blk(h, c)
+    out = h @ model.output.weight[:, :, 0].T + model.output.bias
+    return out.transpose(1, 2).clamp(-1.0, 1.0)
+
+
 def round_tf32(a: torch.Tensor) -> torch.Tensor:
     """float32 rounded to tf32 (10 mantissa bits) to nearest, ties away from
     zero, as ``cvt.rna.tf32.f32`` rounds: the low 13 bits come out zero."""

@@ -1,7 +1,10 @@
 """STFT primitives, in PyTorch.
 
 Counterpart of ``music_mixing_style_transfer_tpu/ops/stft.py``: the windows,
-framing, the forward STFT (both ``center`` conventions) and its inverse.
+framing, the forward STFT (both ``center`` conventions) and its inverse,
+the reference normalization's STFT pair (``compute_stft`` /
+``compute_istft``) and ``fx_utils``'s framing pair (``slicing`` /
+``overlap``).
 The FX-normalization DSP uses ``center=False`` with a sqrt-Hann window
 (reference ``utils_data_normalization.py``); the training losses'
 front end (``losses/spectral.py``) ``center=True`` with a periodic Hann
@@ -24,6 +27,14 @@ def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
     ``periodic=False`` the symmetric np.hanning."""
     n = win_length if periodic else win_length - 1
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / max(n, 1))
+    return w.astype(np.float32)
+
+
+def hamming_window(win_length: int, periodic: bool = True) -> np.ndarray:
+    """Hamming window, periodic (torch.hamming_window's default) or
+    symmetric."""
+    n = win_length if periodic else win_length - 1
+    w = 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(win_length) / max(n, 1))
     return w.astype(np.float32)
 
 
@@ -105,3 +116,64 @@ def istft(
     if length is not None:
         y = y[..., :length]
     return y
+
+
+def compute_stft(samples: torch.Tensor, hop_length: int, fft_size: int) -> torch.Tensor:
+    """``[T, C] -> [n_frames, C, n_bins]`` complex, sqrt-Hann, ``center=False``
+    (reference ``common_miscellaneous.py:50-77``)."""
+    spec = stft(samples.T, fft_size, hop_length, sqrt_hann_window(fft_size), center=False)
+    return spec.transpose(0, 1)  # [C, F, B] -> [F, C, B]
+
+
+def compute_istft(
+    spec: torch.Tensor, hop_length: int, fft_size: int, length: Optional[int] = None
+) -> torch.Tensor:
+    """``[n_frames, C, n_bins] -> [T, C]``, the inverse of
+    :func:`compute_stft` (reference ``common_miscellaneous.py:80-104``)."""
+    y = istft(spec.transpose(0, 1), hop_length, sqrt_hann_window(fft_size), center=False,
+              length=length)
+    return y.T
+
+
+def slicing(
+    x, win_length: int, hop_length: int, center: bool = True, windowing: bool = False,
+    pad: int = 0,
+) -> torch.Tensor:
+    """A 1-D signal as ``[n_frames, win_length]`` float32 frames (reference
+    ``fx_utils.slicing`` :164-179): with ``center``, zero padding of
+    ``(win - hop + pad)//2`` on the left and ``(win + hop + pad)//2`` on the
+    right; with ``windowing``, a periodic Hann window on each frame."""
+    x = torch.as_tensor(x)
+    if center:
+        x = F.pad(x, (int((win_length - hop_length + pad) // 2),
+                      int((win_length + hop_length + pad) // 2)))
+    frames = frame(x, win_length, hop_length)
+    if windowing:
+        frames = frames * torch.as_tensor(hann_window(win_length), device=frames.device)
+    return frames.to(torch.float32)
+
+
+def overlap(
+    frames, x_len: int, win_length: int, hop_length: int, windowing: bool = True,
+    rate: float = 1.0,
+) -> torch.Tensor:
+    """Overlap-add ``[n_frames, win_length]`` frames back to a float32
+    signal (reference ``fx_utils.overlap`` :182-198): with ``windowing``, a
+    periodic Hann window and a ``rate * hop / win`` gain; the first
+    ``x_len // hop`` frames added into ``win + hop * (x_len / hop)`` samples,
+    then ``win // 2`` trimmed from both ends."""
+    frames = torch.as_tensor(frames)
+    if windowing:
+        w = torch.as_tensor(hann_window(win_length), device=frames.device)
+        rate = rate * hop_length / win_length
+    else:
+        w = torch.ones(win_length, device=frames.device)
+        rate = 1.0
+    n_frames = min(int(x_len / hop_length), frames.shape[0])
+    expected_len = int(win_length + hop_length * (x_len / hop_length))
+    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop_length
+           + torch.arange(win_length, device=frames.device)[None, :])
+    y = torch.zeros(expected_len, dtype=frames.dtype, device=frames.device)
+    y = y.index_add(0, idx.reshape(-1), (frames[:n_frames] * w).reshape(-1).to(frames.dtype))
+    y = y[win_length // 2 : -(win_length // 2)]
+    return (y * rate).to(torch.float32)

@@ -5,21 +5,22 @@ orbax manager there; the reference's torch.save utilities,
 ``modules/training_utils.py:13-123``: numbered files, resume from the
 highest, keep the last 2). A checkpoint ``<directory>/step_<n>.pt`` holds
 the step, the model's state dict (parameters and BN buffers) under
-``"model"``, so ``models/checkpoints.py:load_model_state`` loads it as an
-encoder, and the optimizer's state. The JAX package's orbax directories
-raise: their loader is ROADMAP's "Orbax checkpoints" item.
+``"model"``, so ``models/checkpoints.py:load_model_state`` loads it (or
+the directory, taking the newest) as an encoder, and the optimizer's state.
+A directory of the JAX trainer's orbax steps is refused: optax's state does
+not carry over to torch's Adam (the JAX package does not resume a torch run
+either), so a run starts afresh from the weights, exported to an ``.npz``
+(``models/checkpoints.py:ORBAX_EXPORT_RECIPE``).
 """
 from __future__ import annotations
 
 import os
-import re
 from typing import List, Optional
 
 import torch
 
+from ..models.checkpoints import ORBAX_EXPORT_RECIPE, STEP_FILE, is_orbax_dir, step_files
 from .state import TrainState
-
-_NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
 class CheckpointManager:
@@ -29,20 +30,18 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
-        orbax = [n for n in os.listdir(self.directory)
-                 if n.isdigit() and os.path.isdir(os.path.join(self.directory, n))]
-        if orbax:
-            raise NotImplementedError(
-                f"{self.directory} holds orbax step directories ({', '.join(sorted(orbax))}): "
-                "the JAX trainer's checkpoints are not yet readable by the PyTorch package "
-                "(ROADMAP: 'Orbax checkpoints'); train into a fresh --out_dir"
+        if is_orbax_dir(self.directory):
+            raise ValueError(
+                f"{self.directory} holds the JAX package's orbax step directories or converted "
+                "variables, whose optimizer state does not carry over to the port: train into "
+                "a fresh --out_dir. To start from their weights, " + ORBAX_EXPORT_RECIPE
             )
 
     def steps(self) -> List[int]:
-        return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
+        return sorted(step_files(self.directory))
 
     def path(self, step: int) -> str:
-        return os.path.join(self.directory, f"step_{step:08d}.pt")
+        return os.path.join(self.directory, STEP_FILE.format(step))
 
     def save(self, step: int, state: TrainState, extra: Optional[dict] = None) -> None:
         """Write ``step``'s checkpoint (to a temporary name, then renamed),

@@ -24,8 +24,10 @@ is ``cuda:LOCAL_RANK``, and an explicit ``--device cuda:K`` wins over it.
 ``--data_dir`` holds ``train/`` (and ``val/`` or ``test/``) with the MUSDB
 layout's ``{inst}_normalized_eqcompimagegain_silence_trimmed*.wav``.
 The converter needs the frozen encoder's checkpoint, ``--encoder_ckpt``: a
-published ``FXencoder_ps.pt`` or a ``step_<n>.pt`` that the ``fxencoder``
-model wrote under ``<out_dir>/ckpt/``; the converter's own go under
+published ``FXencoder_ps.pt``, a ``step_<n>.pt`` that the ``fxencoder``
+model wrote under ``<out_dir>/ckpt/`` or that directory (its newest step),
+or a flax-variables ``.npz`` exported from the JAX package
+(``models/checkpoints.py:load_model_state``); the converter's own go under
 ``<out_dir>/ckpt_conv/``.
 
 Differences from the JAX CLI: ``--device`` and ``--dist_backend``;
@@ -33,8 +35,8 @@ Differences from the JAX CLI: ``--device`` and ``--dist_backend``;
 ``FXencoderConfig`` and ``TCNConfig`` fields (the defaults are the
 published architectures; smaller ones serve tests and cut-depth runs; the
 converter's ``condition_dimension`` must be the encoder's embedding
-width); an orbax ``--encoder_ckpt`` directory raises (ROADMAP: "Orbax
-checkpoints"). ``--no_mesh`` keeps the JAX meaning (no mesh: one device):
+width); an orbax ``--encoder_ckpt`` directory raises with the recipe that
+exports it to an ``.npz``. ``--no_mesh`` keeps the JAX meaning (no mesh: one device):
 a one-process run trains on one device whatever it is given, and under
 ``torchrun`` with more than one rank it raises rather than train N
 independent models. ``--retries`` is accepted and changes nothing: the JAX
@@ -96,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the trained model's blocks in the backward pass "
                         "(torch.utils.checkpoint): one block's activations at a time")
     p.add_argument("--encoder_ckpt", type=str, default=None,
-                   help="(converter) the frozen encoder's torch .pt: a published one, or "
-                        "<out_dir>/ckpt/step_<n>.pt of the fxencoder model")
+                   help="(converter) the frozen encoder: a torch .pt (a published one, or "
+                        "<out_dir>/ckpt/step_<n>.pt of the fxencoder model), that ckpt/ "
+                        "directory (its newest step), or a flax-variables .npz")
     p.add_argument("--prob_schedule", type=str, default=None,
                    help="(fxencoder) target probs, e.g. 'eq=0.5,comp=0.5'")
     p.add_argument("--save_every", type=int, default=1,

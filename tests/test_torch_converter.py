@@ -321,7 +321,7 @@ def test_converter_cli_trains_from_the_fxencoder_checkpoint(corpus, tmp_path, ca
         cli.main(["converter", "--out_dir", conv_run, *common])
     assert "converter training requires --encoder_ckpt" in capsys.readouterr().err
     os.makedirs(os.path.join(tmp_path, "orbax", "3"))
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(ValueError, match="orbax checkpoint directory.*flatten_dict"):
         cli.main(["converter", "--out_dir", conv_run, "--encoder_ckpt", str(tmp_path / "orbax"),
                   *common])
 

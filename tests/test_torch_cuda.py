@@ -634,3 +634,74 @@ def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
         for name, p in model.named_parameters():
             want = p.grad.cpu().numpy()
             assert np.abs(r["grads"][name] - want).max() <= 1e-5 * np.abs(want).max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sefa_edited_conditions_run_k1_per_block(card, dtype):
+    """SeFa edits on two fused blocks (``models/sefa.py``): the converter
+    takes each block's own condition through K1 (one launch a fused block)
+    and matches the block-by-block plain path (1e-4 of max in float32; 2e-2
+    NRMSE in bf16, the K1 bf16 tolerance); an edit changes the output."""
+    from music_mixing_style_transfer_tpu_torch.config import TCNConfig
+    from music_mixing_style_transfer_tpu_torch.models import MixFXcloner
+    from music_mixing_style_transfer_tpu_torch.models.fast_init import fast_init
+    from music_mixing_style_transfer_tpu_torch.models.sefa import sefa_per_block_conditions
+    from music_mixing_style_transfer_tpu_torch.ops.cuda.tcn_block import converter_plain
+    from music_mixing_style_transfer_tpu_torch.utils.device import full_float32
+
+    model = fast_init(MixFXcloner(TCNConfig(condition_dimension=16, nblocks=6)), seed=3)
+    model = model.to(card, dtype).eval()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.standard_normal((2, 2, 8192)) * 0.3).astype(np.float32)).to(card, dtype)
+    cond = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32)).to(card, dtype)
+    # strengths that keep the output inside the clamp (this FiLM's eigenvalues are ~16-30)
+    conds = sefa_per_block_conditions(cond, model, {3: (0, 0.1), 5: (1, -0.1)})
+    with full_float32(), torch.inference_mode():
+        before = tcn_block.launches
+        got = model(x, conds).float()
+        assert tcn_block.launches - before == 3  # blocks 3-5
+        want = converter_plain(model, x, conds).float()
+        base = model(x, cond).float()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    else:
+        nrmse = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+        assert nrmse < 2e-2
+    assert float((got - base).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_normalizer_at_48k_card_matches_cpu(card):
+    """``normalize_device`` at 48 kHz (the imager's Haas draw at that
+    rate, K2 in the compression matching) on a short 4-stem song with one
+    near-mono stem, with the shipped features (so the default FFT size):
+    the card within 1e-4 of max|cpu| and the same compression choices."""
+    import os
+
+    from music_mixing_style_transfer_tpu_torch.config import NormalizationConfig
+    from music_mixing_style_transfer_tpu_torch.normalize.batch import BatchedAudioEffectsNormalizer
+    from music_mixing_style_transfer_tpu_torch.normalize.features import load_fx_features
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "music_mixing_style_transfer_tpu_torch", "weights",
+                        "musdb18_fxfeatures_eqcompimagegain.npy")
+    cfg = NormalizationConfig(sample_rate=48000)
+    features = load_fx_features(path, stems=cfg.stems)
+    rng = np.random.default_rng(48)
+    stems = {inst: _music(rng, 2**15, 0.3) for inst in cfg.stems}
+    stems["bass"][1] = stems["bass"][0] + 0.01 * stems["bass"][1]  # near mono: the Haas branch
+    out, choice = {}, {}
+    for dev in ("cuda", "cpu"):
+        norm = BatchedAudioEffectsNormalizer(features, cfg, device=dev)
+        before = compressor_envelope.launches
+        out[dev] = norm.normalize_stems(stems)
+        choice[dev] = norm.last_compression
+        out[dev + "_launches"] = compressor_envelope.launches - before
+    assert out["cuda_launches"] > 0 and out["cpu_launches"] == 0
+    for k in ("ratio", "threshold", "active"):
+        assert np.array_equal(choice["cuda"][k], choice["cpu"][k]), k
+    for inst in cfg.stems:
+        err = np.abs(out["cuda"][inst] - out["cpu"][inst]).max()
+        assert np.isfinite(out["cuda"][inst]).all()
+        assert err <= 1e-4 * np.abs(out["cpu"][inst]).max(), inst

@@ -212,8 +212,14 @@ def test_normalize_imager_matches_jax(rng, mono):
             mono_threshold=float(thresholds[s]),
         )
         close(got[s], want)
-    with pytest.raises(NotImplementedError, match="44100"):
-        pimager.normalize_imager(t(stems), 0.2, 0.9, sr=48000)
+    # another rate: JAX draws the Haas delay at 48 kHz, and so does the port
+    got = pimager.normalize_imager(t(stems), t(targets), t(thresholds), sr=48000).numpy()
+    for s in range(2):
+        want = jimager.normalize_imager(
+            jnp.asarray(stems[s]), target_side_mid_bal=float(targets[s]),
+            mono_threshold=float(thresholds[s]), sr=48000,
+        )
+        close(got[s], want)
     close(rms_normalize(t(x), 3 * t(x)).numpy(), x)
 
 

@@ -236,5 +236,5 @@ def test_checkpoint_save_keep_and_restore(tmp_path):
 
 def test_orbax_directories_raise(tmp_path):
     (tmp_path / "ckpt" / "3").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(ValueError, match="orbax step directories.*flatten_dict"):
         CheckpointManager(str(tmp_path / "ckpt"))
