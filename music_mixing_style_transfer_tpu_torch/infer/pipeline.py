@@ -32,6 +32,13 @@ pass runs on its own device, and the results are gathered on the first
 device, where the means, the sum and the int16 quantization run. With
 ``InferenceConfig.sequence_parallel`` the PCM path converts each whole
 stem in one time-sharded forward instead (``infer/seqpar.py``).
+
+Traced (``utils/profiling.py``), ``transfer_song_pcm`` is the span
+``infer.request``, with ``infer.upload`` around each host-to-device copy of
+a stem stack and ``infer.finish`` around the sum, quantization and
+download; the counter ``infer.request`` records ``{"samples": T, "ok":
+bool}`` a call, and ``infer.segments`` ``(model, real, dispatched)`` where
+the PCM path pads a batch of segments to its bucket.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from ..models import FXencoder, MixFXcloner
 from ..models.checkpoints import load_model_state
 from ..models.fast_init import fast_init
 from ..parallel.mesh import Mesh
+from ..utils import profiling
 from ..utils.device import full_float32, resolve_device
 from ..utils.logging import get_logger
 
@@ -409,6 +417,7 @@ class MixingStyleTransfer:
             nr = 1
             ref_seg = F.pad(ref_dev, (0, max(-(-Tr // 4096) * 4096, 4096) - Tr))
         B_ref = self.engine._pad_bucket(S * nr)
+        profiling.count("infer.segments", ("encoder", S * nr, B_ref))
         ref_seg = F.pad(ref_seg, (0, 0, 0, 0, 0, B_ref - S * nr))
         onehot = np.zeros((S, B_ref), np.float32)
         for s in range(S):
@@ -437,8 +446,21 @@ class MixingStyleTransfer:
         FX-normalized on the device first, in both modes.
 
         Returns ``(mixture_pcm [2, T] int16, stems dict | None)``, as numpy
-        arrays, or as device tensors when ``sync=False``.
+        arrays, or as device tensors when ``sync=False``. A call that raises
+        (``torch.OutOfMemoryError`` among others) is recorded with ``ok``
+        false, and the exception passes through unchanged.
         """
+        ok = False
+        try:
+            with profiling.span("infer.request"):
+                out = self._transfer_song_pcm(input_pcm, reference_pcm, want_stems,
+                                              reference_pcm_b, sync)
+            ok = True
+            return out
+        finally:
+            profiling.count("infer.request", {"samples": int(input_pcm.shape[-1]), "ok": ok})
+
+    def _transfer_song_pcm(self, input_pcm, reference_pcm, want_stems, reference_pcm_b, sync):
         cfg = self.cfg
         insts = list(cfg.instruments)
         S = len(insts)
@@ -453,8 +475,12 @@ class MixingStyleTransfer:
         dev = self.engine.device
         T = input_pcm.shape[-1]
 
+        def to_dev(a):
+            with profiling.span("infer.upload"):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
         def upload(a):
-            x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            x = to_dev(a)
             return x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
         Tb = -(-max(T, 1) // L) * L  # song-length bucket = whole segments
@@ -469,11 +495,11 @@ class MixingStyleTransfer:
             y_in = y_in * (torch.arange(Tb, device=dev) < T)
         else:
             y_in = F.pad(upload(input_pcm), (0, Tb - T))
-        ref_dev = torch.from_numpy(np.ascontiguousarray(reference_pcm)).to(dev)
+        ref_dev = to_dev(reference_pcm)
         embs = self._embed_group_pcm(ref_dev, reference_pcm.shape[-1])  # [S, D]
 
         if reference_pcm_b is not None:
-            ref_b_dev = torch.from_numpy(np.ascontiguousarray(reference_pcm_b)).to(dev)
+            ref_b_dev = to_dev(reference_pcm_b)
             embs_b = self._embed_group_pcm(ref_b_dev, reference_pcm_b.shape[-1])
             n_interp = int(cfg.interpolate_segments)
             L = T // n_interp + 1  # chunk length (reference style_transfer.py:241)
@@ -496,6 +522,7 @@ class MixingStyleTransfer:
         # convert all stems' segments in one dispatch
         segs = y_in.reshape(S, 2, n, L).permute(0, 2, 1, 3).reshape(S * n, 2, L)
         B_in = self.engine._pad_bucket(S * n)
+        profiling.count("infer.segments", ("converter", S * n, B_in))
         segs = F.pad(segs, (0, 0, 0, 0, 0, B_in - S * n))
         cond = F.pad(cond, (0, 0, 0, B_in - S * n))
         out = self.engine._convert_multi(segs, cond)
@@ -504,6 +531,7 @@ class MixingStyleTransfer:
         y = out[: S * n].reshape(S, n, 2, L).permute(0, 2, 1, 3).reshape(S, 2, n * L)
         return self._finish_pcm(y[:, :, :T], want_stems, insts, sync)
 
+    @profiling.spanned("infer.finish")
     def _finish_pcm(self, y: torch.Tensor, want_stems: bool, insts, sync: bool):
         """Sum converted stems ``[S, 2, T]``, quantize to int16 on the device
         (round half to even, as ``jnp.round``), download once unless

@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import FXencoderConfig
+from ..utils.profiling import spanned
 from .blocks import Conv1dLayer, ResConvBlock
 
 
@@ -63,6 +64,7 @@ class FXencoder(nn.Module):
                 blocks.append(Conv1dLayer(channels[i], channels[i + 1], k, padding="VALID", **kw))
         self.encoder = nn.ModuleList(blocks)
 
+    @spanned("models.fx_encoder")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.encoder:

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import TCNConfig
 from ..ops.cuda.tcn_block import fused_block_applicable, tcn_block
+from ..utils.profiling import spanned
 from .blocks import LEAKY_SLOPE, BatchNorm1d, FiLM
 from .fx_encoder import keep_buffers
 
@@ -95,10 +96,12 @@ class TCNBlock(nn.Module):
             return tcn_block(x.contiguous(), w, s, t, r, b, wr, self.dilation)
         return self.forward_nch(x.transpose(1, 2), cond).transpose(1, 2)
 
+    @spanned("models.tcn.plain")
     def forward_nch(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """The block on channels-first ``[B, in_ch, T]`` activations: the
         training layout (JAX ``tcn.py:110-126``), and the body of every
-        block that does not take the fused kernel."""
+        block that does not take the fused kernel (span
+        ``models.tcn.plain``)."""
         h = self.conv1(x)
         if self.causal:
             h = h[..., : -self.pad_length]
@@ -136,6 +139,7 @@ class MixFXcloner(nn.Module):
     def receptive_field(self) -> int:
         return self.config.receptive_field()
 
+    @spanned("models.tcn")
     def forward(
         self, x: torch.Tensor, cond: Union[torch.Tensor, Sequence[torch.Tensor]]
     ) -> torch.Tensor:

@@ -14,6 +14,12 @@ stage runs once for all stems' channels, on the device of the input:
 
 Same stage math and skip rules as the JAX package; after each call
 ``last_compression`` holds the compression stage's choice per channel.
+
+Spans (``utils/profiling.py``): ``normalize.batch`` around the whole call,
+``normalize.<stage>`` around each stage, ``normalize.compression.sync``
+around the host round trip and ``normalize.compression.host_sweep``
+around the host-stepped sweep; the counter ``normalize.compression``
+records ``{"fallback": bool}`` a call.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..ops.biquad import _odd_ext
 from ..ops.compressor import CompressorStream, compress_and_clip
 from ..ops.loudness import integrated_loudness
 from ..ops.stft import sqrt_hann_window, stft
+from ..utils import profiling
 from .imager import normalize_imager
 from .matching import (
     _comp_grid,
@@ -264,21 +271,24 @@ class BatchedAudioEffectsNormalizer:
         y = torch.where(active_d[:, None], y, x)
 
         # the ONE host round trip, behind the final compression queued above
-        fallback = Gc < Gm and bool((active_d & ~any0).any())
-        active = active_d.cpu().numpy()
-        if fallback:
-            y, sel_r, sel_t = self._comp_host_sweep(
-                x, down_d.cpu().numpy(), active, grid_r.cpu().numpy(), grid_t.cpu().numpy(),
-                ref_peak, ref_std, attacks, releases, Gc, Gm,
-            )
-        self.last_compression = {
-            "ratio": sel_r.cpu().numpy(),
-            "threshold": sel_t.cpu().numpy(),
-            "active": active,
-            "fallback": np.asarray(fallback),
-        }
+        with profiling.span("normalize.compression.sync"):
+            fallback = Gc < Gm and bool((active_d & ~any0).any())
+            active = active_d.cpu().numpy()
+            if fallback:
+                y, sel_r, sel_t = self._comp_host_sweep(
+                    x, down_d.cpu().numpy(), active, grid_r.cpu().numpy(), grid_t.cpu().numpy(),
+                    ref_peak, ref_std, attacks, releases, Gc, Gm,
+                )
+            self.last_compression = {
+                "ratio": sel_r.cpu().numpy(),
+                "threshold": sel_t.cpu().numpy(),
+                "active": active,
+                "fallback": np.asarray(fallback),
+            }
+        profiling.count("normalize.compression", {"fallback": fallback})
         return y.reshape(S, 2, -1)
 
+    @profiling.spanned("normalize.compression.host_sweep")
     def _comp_host_sweep(
         self, x, down, active, grid_r, grid_t, ref_peak, ref_std, attacks, releases, Gc, Gm,
     ):
@@ -332,6 +342,7 @@ class BatchedAudioEffectsNormalizer:
         )
 
     # -- orchestration --------------------------------------------------
+    @profiling.spanned("normalize.batch")
     def normalize_device(
         self, x: torch.Tensor, insts: Sequence[str], length_list: Sequence[int]
     ) -> torch.Tensor:
@@ -342,17 +353,18 @@ class BatchedAudioEffectsNormalizer:
         skip = 20.0 * torch.log10(x.abs().amax((1, 2)) + 1e-30) <= cfg.min_db
         cur = x
         for effect in cfg.effects:
-            if effect == "loudness":
-                y = self._stage_loudness(cur, insts)
-            elif effect == "eq":
-                y = self._stage_eq(cur, insts, length_list)
-            elif effect == "compression":
-                y = self._stage_compression(cur, insts)
-            elif effect == "imager":
-                y = self._stage_imager(cur, insts)
-            else:
-                raise ValueError(f"unsupported batched effect: {effect}")
-            cur = torch.where(skip[:, None, None], cur, y)
+            with profiling.span("normalize." + effect):
+                if effect == "loudness":
+                    y = self._stage_loudness(cur, insts)
+                elif effect == "eq":
+                    y = self._stage_eq(cur, insts, length_list)
+                elif effect == "compression":
+                    y = self._stage_compression(cur, insts)
+                elif effect == "imager":
+                    y = self._stage_imager(cur, insts)
+                else:
+                    raise ValueError(f"unsupported batched effect: {effect}")
+                cur = torch.where(skip[:, None, None], cur, y)
         return cur
 
     @torch.inference_mode()

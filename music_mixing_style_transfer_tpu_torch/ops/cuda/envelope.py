@@ -14,7 +14,10 @@ given, for the compander (``ops/compressor.py:compand``), whose linear-domain
 envelope K2 does not compute.
 
 ``compressor_envelope.launches`` counts kernel launches (and nothing else),
-so a run can show that its path went through the kernel.
+so a run can show that its path went through the kernel. While tracing,
+the counter ``ops.cuda.envelope`` records ``(L, T, R)`` of each envelope
+computed (``R`` the rows of ``x`` that ``rows`` reads, else ``None``): on
+the card one record a launch.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import functools
 
 import torch
 
+from ...utils import profiling
 
 REFERENCE_CHUNK = 256  # time steps of the plain version's side chain at a time
 
@@ -222,7 +226,9 @@ def compressor_envelope(x, threshold, ratio, a_att, a_rel, env0, rows=None):
                 f"got {tuple(a.shape)} on {a.device}"
             )
         params.append(a.to(torch.float32).contiguous())
+    shape = (L, T, None if rows is None else x.shape[0])
     if x.device.type == "cpu":
+        profiling.count("ops.cuda.envelope", shape)
         return envelope_reference(x, *params, rows=rows)
     if x.device.type != "cuda":
         raise ValueError(f"compressor_envelope: unsupported device {x.device}")
@@ -246,6 +252,7 @@ def compressor_envelope(x, threshold, ratio, a_att, a_rel, env0, rows=None):
     if err != 0:
         raise RuntimeError(f"compressor_envelope: kernel launch failed with CUDA error {err}")
     compressor_envelope.launches += 1
+    profiling.count("ops.cuda.envelope", shape)
     return y, env_out
 
 

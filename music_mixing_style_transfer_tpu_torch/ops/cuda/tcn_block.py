@@ -13,7 +13,9 @@ PyTorch version in exact float32; the wrapper ``tcn_block`` takes it only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
 ``tcn_block.launches`` counts kernel launches (and nothing else), so a run
-can show that its path went through the kernel.
+can show that its path went through the kernel. While tracing, the counter
+``ops.cuda.tcn_block`` records ``(B, T, d, bf16)`` of each fused block
+computed: on the card one record a launch.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from ...utils import profiling
 
 K_TAPS = 15
 CHANNELS = 128
@@ -139,6 +143,8 @@ def tcn_block(x, w, s, t, r, b, wr, d: int) -> torch.Tensor:
     parts), the rest to float32. Returns a new ``[B, T, 128]`` tensor of
     ``x.dtype``."""
     if x.device.type == "cpu":
+        profiling.count("ops.cuda.tcn_block",
+                        (x.shape[0], x.shape[1], d, x.dtype == torch.bfloat16))
         return tcn_block_reference(x, w, s, t, r, b, wr, d)
     if x.device.type != "cuda":
         raise ValueError(f"tcn_block: unsupported device {x.device}")
@@ -184,6 +190,7 @@ def tcn_block(x, w, s, t, r, b, wr, d: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"tcn_block: kernel launch failed with CUDA error {err}")
     tcn_block.launches += 1
+    profiling.count("ops.cuda.tcn_block", (B, T, d, x.dtype == torch.bfloat16))
     return y
 
 

@@ -1,11 +1,17 @@
-"""Inference-path profile of the PyTorch port: the FX normalizer's seconds
-per stage and the whole-song path's split into phases (upload / normalize /
-embed / convert / download), each phase ending in a wait for the card.
+"""Inference-path profile of the PyTorch port: one whole song through
+``MixingStyleTransfer.transfer_song_pcm`` under ``utils/profiling.trace``,
+its phases read from the program's own spans.
 
 Counterpart of ``music_mixing_style_transfer_tpu/tools/infer_prof.py``,
-with the same JSON keys. It attributes the wall time of
-``MixingStyleTransfer.transfer_song_pcm``, phase by phase, with the
-pipeline's own steps.
+with the same JSON keys: ``upload_s`` (span ``infer.upload``),
+``normalize_s`` (``normalize.batch``) and ``norm_<stage>_s``
+(``normalize.<stage>``), ``embed_s`` (``models.fx_encoder``), ``convert_s``
+(``models.tcn``) and ``download_s`` (``infer.finish``: sum, quantization
+and download), each summed over the span's calls: on the card the device
+seconds of the operations launched inside it, on the CPU its host seconds.
+``total_s`` is the request's host seconds (``infer.request``), and ``rtf``
+the song's seconds over ``total_s``. The traced call follows a warm-up call
+(kernel builds, cuDNN's choices).
 
 Run: ``python -m music_mixing_style_transfer_tpu_torch.tools.infer_prof
 [--seconds 60] [--dtype bfloat16] [--stems /path/to/stem_dir]
@@ -18,16 +24,18 @@ import argparse
 import json
 import os
 import sys
-import time
+from collections import defaultdict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+from torch.autograd import DeviceType
 
-from ..utils.profiling import sync
+from ..utils.profiling import trace
 
 SR = 44100
 INSTS = ("drums", "bass", "other", "vocals")
+PHASES = {"upload_s": "infer.upload", "normalize_s": "normalize.batch",
+          "embed_s": "models.fx_encoder", "convert_s": "models.tcn", "download_s": "infer.finish"}
 
 
 def _stems(args) -> np.ndarray:
@@ -46,88 +54,32 @@ def _stems(args) -> np.ndarray:
     return (rng.standard_normal((4, 2, T)) * (0.05 + 0.4 * env) * 20000).astype(np.int16)
 
 
-def profile_normalize(args, normalizer, stems_pcm: np.ndarray) -> dict:
-    """Seconds of each stage of the batched normalizer (second of two runs)."""
-    b = normalizer.batched()
-    cfg = b.cfg
-    insts = list(INSTS)
-    T = stems_pcm.shape[-1]
-    x = torch.from_numpy(stems_pcm.astype(np.float32) / 32768.0).to(b.device)
-    x = F.pad(x, (cfg.fft_size, cfg.fft_size))
-    stages = {
-        "loudness": lambda cur: b._stage_loudness(cur, insts),
-        "eq": lambda cur: b._stage_eq(cur, insts, [T] * len(insts)),
-        "compression": lambda cur: b._stage_compression(cur, insts),
-        "imager": lambda cur: b._stage_imager(cur, insts),
-    }
-    out = {}
-    for _ in range(2):
-        cur = x
-        for effect in cfg.effects:
-            t0 = time.perf_counter()
-            cur = stages[effect](cur)
-            sync(cur)
-            out[f"norm_{effect}_s"] = round(time.perf_counter() - t0, 3)
-    return out
-
-
-def profile_transfer(args, pipe, normalizer) -> dict:
-    """Phase split of one whole song, the steps of ``transfer_song_pcm``
-    (second of two runs, after a warm-up call)."""
-    from ..infer.pipeline import _bucket
-
-    cfg = pipe.cfg
-    insts = list(cfg.instruments)
-    S, L = len(insts), cfg.segment_length
-    dev = pipe.engine.device
+def profile_transfer(args, pipe) -> dict:
+    """The phases of one traced ``transfer_song_pcm`` call, from its spans."""
     inp, ref = _stems(args), _stems(args)
-    T = inp.shape[-1]
-    pipe.transfer_song_pcm(inp, ref)  # warm-up: kernel builds, cuDNN's choices
-
-    out = {}
-    for _ in range(2):
-        t0 = time.perf_counter()
-        in_dev = torch.from_numpy(inp).to(dev)
-        ref_dev = torch.from_numpy(ref).to(dev)
-        sync([in_dev, ref_dev])
-        out["upload_s"] = round(time.perf_counter() - t0, 3)
-
-        Tb = -(-T // L) * L
-        t0 = time.perf_counter()
-        x = in_dev.float() * (1.0 / 32768.0)
-        if normalizer is not None:
-            fft = normalizer.cfg.fft_size
-            x = normalizer.batched().normalize_device(F.pad(x, (fft, fft + Tb - T)), insts, [T] * S)
-            y_in = x[:, :, fft : fft + Tb].clamp(-1.0, 1.0) * (torch.arange(Tb, device=dev) < T)
-        else:
-            y_in = F.pad(x, (0, Tb - T))
-        sync(y_in)
-        out["normalize_s"] = round(time.perf_counter() - t0, 3)
-
-        t0 = time.perf_counter()
-        embs = pipe._embed_group_pcm(ref_dev, T)
-        sync(embs)
-        out["embed_s"] = round(time.perf_counter() - t0, 3)
-
-        t0 = time.perf_counter()
-        n = Tb // L
-        cond = embs.repeat_interleave(n, dim=0)
-        segs = y_in.reshape(S, 2, n, L).permute(0, 2, 1, 3).reshape(S * n, 2, L)
-        B_in = _bucket(S * n)
-        segs = F.pad(segs, (0, 0, 0, 0, 0, B_in - S * n))
-        cond = F.pad(cond, (0, 0, 0, B_in - S * n))
-        y = pipe.engine._convert_multi(segs, cond)
-        y = y[: S * n].reshape(S, n, 2, L).permute(0, 2, 1, 3).reshape(S, 2, n * L)
-        pcm16 = torch.round(y[:, :, :T].sum(0) * 32768.0).clamp(-32768.0, 32767.0).to(torch.int16)
-        sync(pcm16)
-        out["convert_s"] = round(time.perf_counter() - t0, 3)
-
-        t0 = time.perf_counter()
-        pcm16.cpu().numpy()
-        out["download_s"] = round(time.perf_counter() - t0, 3)
-    total = sum(v for k, v in out.items() if k.endswith("_s"))
-    out["total_s"] = round(total, 3)
-    out["rtf"] = round(args.seconds / total, 1)
+    pipe.transfer_song_pcm(inp, ref)  # warm-up
+    with trace() as prof:
+        pipe.transfer_song_pcm(inp, ref)
+    spans = dict(PHASES)
+    if pipe.normalizer is not None:
+        spans.update({f"norm_{stage}_s": "normalize." + stage
+                      for stage in pipe.normalizer.batched().cfg.effects})
+    names = set(spans.values()) | {"infer.request"}
+    host = defaultdict(float)
+    # the raw events: on the CPU the plain envelope's loop makes ~10^5 host
+    # operations, too many for events()' tree
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name() in names:
+            host[e.name()] += e.duration_ns() * 1e-9
+    seconds = host
+    if pipe.engine.device.type == "cuda":
+        seconds = defaultdict(float)
+        for e in prof.events():  # a range's host side holds its kernels' time
+            if e.device_type == DeviceType.CPU and e.name in names:
+                seconds[e.name] += e.device_time_total * 1e-6
+    out = {key: seconds[name] for key, name in spans.items()}
+    out["total_s"] = host["infer.request"]
+    out["rtf"] = args.seconds / out["total_s"]
     return out
 
 
@@ -143,7 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-@torch.inference_mode()
 def run(args) -> dict:
     """The profile as a dict: the published widths, the default inference
     and normalization settings, the port's copy of the MUSDB18 features."""
@@ -167,9 +118,7 @@ def run(args) -> dict:
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "dtype": args.dtype, "seconds": args.seconds,
     }
-    if normalizer is not None:
-        out.update(profile_normalize(args, normalizer, _stems(args)))
-    out.update(profile_transfer(args, pipe, normalizer))
+    out.update(profile_transfer(args, pipe))
     return out
 
 

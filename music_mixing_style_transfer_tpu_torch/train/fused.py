@@ -39,6 +39,7 @@ from ..fx.chain import AugmentationChain, plan_to
 from ..fx.fastpath import augment_contrastive_views, augment_triplets
 from ..models import FXencoder
 from ..models.fx_encoder import keep_buffers
+from ..utils import profiling
 from ..utils.device import full_float32, resolve_device
 from .contrastive import contrastive_loss_fn, make_contrastive_train_step
 from .converter import converter_loss_fn, frozen, make_converter_train_step
@@ -62,7 +63,8 @@ class _FusedPipeline:
     of ``set_chains``) and trains on it (its ``_train``); the loss stays on
     the card. With ``sync=True`` it ends each phase in
     ``torch.cuda.synchronize`` (on the card) and leaves the phases' seconds
-    in ``last_split``. ``fast``: the batched walk over all instruments
+    in ``last_split``. Traced, the phases are the spans ``train.augment``
+    and ``train.step`` (``utils/profiling.py``). ``fast``: the batched walk over all instruments
     (``fx/fastpath.py``), else one chain per instrument."""
 
     def __init__(self, compute_dtype: str, device, fast: bool,
@@ -104,11 +106,13 @@ class _FusedPipeline:
              sync: bool = False) -> Tuple[TrainState, torch.Tensor]:
         """One training step on a raw batch (``args``: the subclass's)."""
         t0 = time.perf_counter()
-        views = self.augment(segs, plans)
+        with profiling.span("train.augment"):
+            views = self.augment(segs, plans)
         if sync:
             self.synchronize()
             t1 = time.perf_counter()
-        state, loss = self._train(state, views, *args)
+        with profiling.span("train.step"):
+            state, loss = self._train(state, views, *args)
         if sync:
             self.synchronize()
             t2 = time.perf_counter()

@@ -158,9 +158,12 @@ def test_infer_prof_reports_every_phase_on_the_cpu(tmp_path, rng, monkeypatch):
     keys = ["norm_loudness_s", "norm_eq_s", "norm_compression_s", "norm_imager_s", "upload_s",
             "normalize_s", "embed_s", "convert_s", "download_s", "total_s", "rtf"]
     assert set(keys) <= set(out) and out["backend"] == "cpu" and out["device"] == "cpu"
-    assert all(out[k] >= 0 for k in keys)
+    assert all(out[k] > 0 for k in keys)
+    # each phase is a span of the one traced request; on the CPU, host seconds
     phases = ("upload_s", "normalize_s", "embed_s", "convert_s", "download_s")
-    assert out["total_s"] == pytest.approx(sum(out[k] for k in phases), abs=2e-3)
+    assert sum(out[k] for k in phases) <= out["total_s"]
+    assert sum(out[k] for k in keys[:4]) <= out["normalize_s"]
+    assert out["rtf"] == pytest.approx(0.3 / out["total_s"])
 
 
 def test_profiling_trace_timer_and_rtf(tmp_path):
