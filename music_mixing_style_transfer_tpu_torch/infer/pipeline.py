@@ -33,11 +33,20 @@ device, where the means, the sum and the int16 quantization run. With
 ``InferenceConfig.sequence_parallel`` the PCM path converts each whole
 stem in one time-sharded forward instead (``infer/seqpar.py``).
 
-Traced (``utils/profiling.py``), ``transfer_song_pcm`` is the span
-``infer.request``, with ``infer.upload`` around each host-to-device copy of
-a stem stack and ``infer.finish`` around the sum, quantization and
-download; the counter ``infer.request`` records ``{"samples": T, "ok":
-bool}`` a call, and ``infer.segments`` ``(model, real, dispatched)`` where
+``transfer_mix_pcm`` takes ``[2, T]`` mixtures instead of stems: it
+separates them on the device with the HTDemucs separator it was given
+(``models/htdemucs.py``) and hands the stem stacks, still on the
+device, to the same device stages. ``run_directory`` and the CLI take that
+path when ``separation_model == "htdemucs"`` and ``do_not_separate`` is
+false; any other separation model shells out to the ``demucs`` CLI, as the
+reference does (``separate_with_demucs``).
+
+Traced (``utils/profiling.py``), ``transfer_song_pcm`` and
+``transfer_mix_pcm`` are the span ``infer.request`` (separation included),
+with ``infer.upload`` around each host-to-device copy of a stem stack and
+``infer.finish`` around the sum, quantization and download; the counter
+``infer.request`` records ``{"samples": T, "ok": bool}`` a call (``T`` the
+input's length), and ``infer.segments`` ``(model, real, dispatched)`` where
 the PCM path pads a batch of segments to its bucket.
 """
 from __future__ import annotations
@@ -284,10 +293,20 @@ class MixingStyleTransfer:
         engine: StyleTransferEngine,
         inference_cfg: Optional[InferenceConfig] = None,
         normalizer=None,
+        separator=None,
     ):
+        """``separator``: the in-process separator for ``transfer_mix_pcm``
+        (``models.htdemucs.HTDemucsSeparator``); without one, that path
+        raises."""
         self.engine = engine
         self.cfg = inference_cfg or InferenceConfig()
         self.normalizer = normalizer
+        self.separator = separator
+
+    def separates_in_process(self) -> bool:
+        """Whether the directory path reads mixtures and separates them
+        here (HTDemucs) rather than reading stems."""
+        return not self.cfg.do_not_separate and self.cfg.separation_model == "htdemucs"
 
     # ------------------------------------------------------------------
     def transfer_stems(
@@ -460,7 +479,43 @@ class MixingStyleTransfer:
         finally:
             profiling.count("infer.request", {"samples": int(input_pcm.shape[-1]), "ok": ok})
 
+    @torch.inference_mode()
+    def transfer_mix_pcm(
+        self,
+        input_mix,
+        reference_mix,
+        want_stems: bool = False,
+        reference_mix_b=None,
+        sync: bool = True,
+    ):
+        """``transfer_song_pcm`` from ``[2, T]`` mixtures (int16 or float32):
+        each mixture is separated on the device (``self.separator``, in
+        ``cfg.instruments`` order, which must be the separator's sources)
+        and the stem stacks go on, still on the device, through the same
+        stages. One ``infer.request`` span and record for the whole call,
+        separation included; a call that raises is recorded with ``ok``
+        false and the exception passes through."""
+        ok = False
+        try:
+            with profiling.span("infer.request"):
+                sep = self.separator
+                if sep is None:
+                    raise ValueError("transfer_mix_pcm needs a separator "
+                                     "(MixingStyleTransfer(separator=HTDemucsSeparator(...)))")
+                if tuple(sep.cfg.sources) != tuple(self.cfg.instruments):
+                    raise ValueError(f"the separator's sources {sep.cfg.sources} are not the "
+                                     f"instruments {self.cfg.instruments}")
+                stems = [None if m is None else sep.separate(m)
+                         for m in (input_mix, reference_mix, reference_mix_b)]
+                out = self._transfer_song_pcm(stems[0], stems[1], want_stems, stems[2], sync)
+            ok = True
+            return out
+        finally:
+            profiling.count("infer.request", {"samples": int(input_mix.shape[-1]), "ok": ok})
+
     def _transfer_song_pcm(self, input_pcm, reference_pcm, want_stems, reference_pcm_b, sync):
+        """The device stages; stem stacks are host arrays or, from
+        ``transfer_mix_pcm``, float32 tensors on the device."""
         cfg = self.cfg
         insts = list(cfg.instruments)
         S = len(insts)
@@ -470,12 +525,16 @@ class MixingStyleTransfer:
             ("reference", reference_pcm),
             ("reference_b", reference_pcm_b),
         ):
-            if a is not None and a.dtype not in (np.int16, np.float32):
+            on_device = isinstance(a, torch.Tensor)
+            kinds = (torch.int16, torch.float32) if on_device else (np.int16, np.float32)
+            if a is not None and a.dtype not in kinds:
                 raise ValueError(f"{name} stems must be int16 or float32, got {a.dtype}")
         dev = self.engine.device
         T = input_pcm.shape[-1]
 
         def to_dev(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
             with profiling.span("infer.upload"):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -554,7 +613,10 @@ class MixingStyleTransfer:
         """Process every song directory under ``target_dir``; expects
         pre-separated stems at
         ``<song>/<stem_level_dir>[/<separation_model>]/<input|reference>/<inst>.wav``
-        (reference directory contract, ``data_loader.py:545-603``).
+        (reference directory contract, ``data_loader.py:545-603``), or, when
+        :meth:`separates_in_process`, the mixtures
+        ``<song>/<input|reference>.wav``, separated here
+        (``transfer_mix_pcm``; the stems are not written).
 
         A reader thread loads song i+1's WAVs while song i computes, and a
         writer thread downloads and writes song i-1's results."""
@@ -599,9 +661,17 @@ class MixingStyleTransfer:
 
         song_dirs = sorted(glob.glob(os.path.join(target_dir, "*/")))
         prefetch_ok = cfg.pcm_fast_path and cfg.segment_halo == 0
+        mixes = self.separates_in_process()
+        if mixes and not prefetch_ok:
+            raise ValueError("in-process separation (separation_model htdemucs) runs on the "
+                             "device-resident path: pcm_fast_path true and segment_halo 0")
+
+        def load(song_dir):
+            return self._load_mix_pcm(song_dir) if mixes else self._load_song_pcm(song_dir, sep_dir)
+
         next_fut = None
         if prefetch_ok and song_dirs:
-            next_fut = io_pool.submit(self._load_song_pcm, song_dirs[0], sep_dir)
+            next_fut = io_pool.submit(load, song_dirs[0])
 
         pending = None  # (out_dir, mixture, outputs), device tensors in flight
         try:
@@ -614,15 +684,15 @@ class MixingStyleTransfer:
                     try:
                         bundle = next_fut.result()
                     except ValueError as e:  # e.g. sample-rate mismatch
+                        if mixes:  # no stems on disk to fall back to
+                            raise
                         bundle = None
                         log.warning(
                             "%s: PCM fast path unavailable (%s); per-stage host path",
                             song_dir, e,
                         )
                     if i + 1 < len(song_dirs):
-                        next_fut = io_pool.submit(
-                            self._load_song_pcm, song_dirs[i + 1], sep_dir
-                        )
+                        next_fut = io_pool.submit(load, song_dirs[i + 1])
                     if bundle is not None:
                         dispatched = self._dispatch_song_pcm(bundle)
 
@@ -661,6 +731,31 @@ class MixingStyleTransfer:
             io_pool.shutdown(wait=True)
         return written
 
+    def _read_pcm(self, path: str) -> np.ndarray:
+        """One WAV as ``[2, T]`` int16 PCM, or float32 for a source that is
+        not 16-bit."""
+        try:
+            return read_wav_stereo_ct_i16(path, expected_rate=self.cfg.sample_rate)
+        except ValueError:
+            # non-16-bit source: float32 upload, same device stages
+            return (read_wav_stereo_ct(path, expected_rate=self.cfg.sample_rate)
+                    .clip(-1.0, 1.0).astype(np.float32))
+
+    def _load_mix_pcm(self, song_dir: str):
+        """Read one song's mixtures (``<song>/<name>.wav``) for
+        ``transfer_mix_pcm`` (reader thread). Returns
+        ``(input [2,T], reference [2,Tr], reference_b | None)``."""
+        cfg = self.cfg
+
+        def mix(name):
+            return self._read_pcm(os.path.join(song_dir, name + ".wav"))
+
+        return (
+            mix(cfg.input_file_name),
+            mix(cfg.reference_file_name),
+            mix(cfg.reference_file_name_2interpolate) if cfg.interpolation else None,
+        )
+
     def _load_song_pcm(self, song_dir: str, sep_dir: str):
         """Read one song's stem WAVs as raw PCM stacks (host I/O only, run
         on the reader thread). Returns
@@ -668,18 +763,8 @@ class MixingStyleTransfer:
         cfg = self.cfg
 
         def load_pcm(name):
-            stems = []
-            for inst in cfg.instruments:
-                path = os.path.join(song_dir, sep_dir, name, inst + ".wav")
-                try:
-                    stems.append(read_wav_stereo_ct_i16(path, expected_rate=cfg.sample_rate))
-                except ValueError:
-                    # non-16-bit source: float32 upload, same device stages
-                    stems.append(
-                        read_wav_stereo_ct(path, expected_rate=cfg.sample_rate)
-                        .clip(-1.0, 1.0)
-                        .astype(np.float32)
-                    )
+            stems = [self._read_pcm(os.path.join(song_dir, sep_dir, name, inst + ".wav"))
+                     for inst in cfg.instruments]
             if any(s.dtype != np.int16 for s in stems):
                 stems = [
                     s.astype(np.float32) * (1.0 / 32768.0) if s.dtype == np.int16 else s
@@ -699,12 +784,9 @@ class MixingStyleTransfer:
         returns device tensors (downloaded when the pipeline drains)."""
         in_pcm, ref_pcm, ref_b_pcm = bundle
         t0 = time.perf_counter()
-        mixture, stems_out = self.transfer_song_pcm(
-            in_pcm,
-            ref_pcm,
-            want_stems=self.cfg.save_each_inst,
-            reference_pcm_b=ref_b_pcm,
-            sync=False,
+        transfer = self.transfer_mix_pcm if self.separates_in_process() else self.transfer_song_pcm
+        mixture, stems_out = transfer(
+            in_pcm, ref_pcm, self.cfg.save_each_inst, ref_b_pcm, sync=False
         )
         log.info("device-resident dispatch: %.1fs", time.perf_counter() - t0)
         return mixture, stems_out
@@ -721,7 +803,8 @@ def separate_with_demucs(
 
     if shutil.which("demucs") is None:
         raise RuntimeError(
-            "demucs CLI not found; pre-separate stems and use do_not_separate=True"
+            "demucs CLI not found; pre-separate stems and use do_not_separate=True, "
+            "or separate in-process on the card with --separation_model htdemucs"
         )
     subprocess.run(
         ["demucs", song_path, "-n", model, "-d", device, "-o", out_dir], check=True

@@ -9,8 +9,13 @@ Runs on the card (``--inference_device cuda``, the default) unless
 ``--inference_device cpu`` is given. ``--normalize_input true`` (the
 default) FX-normalizes the input stems toward the MUSDB18 features of
 ``--precomputed_normalization_feature`` (by default the port's own copy in
-``weights/``) before the transfer. Expects pre-separated stems (or the
-``demucs`` CLI on PATH when ``--do_not_separate false``).
+``weights/``) before the transfer. Expects pre-separated stems with
+``--do_not_separate true``. Otherwise (the default) it reads the mixtures
+``<song>/<input|reference>.wav``: ``--separation_model htdemucs`` separates
+them in-process on the inference device (``models/htdemucs.py``, weights
+from ``--ckpt_path_sep``, seeded random ones when that file is missing);
+any other model shells out to the ``demucs`` CLI on PATH, as the reference
+does, and reads the stems it writes.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     default_enc = os.path.join(here, "weights", "FXencoder_ps.pt")
     default_conv = os.path.join(here, "weights", "MixFXcloner_ps.pt")
+    default_sep = os.path.join(here, "weights", "htdemucs.pt")
     default_feat = os.path.join(here, "weights", "musdb18_fxfeatures_eqcompimagegain.npy")
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -52,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--reference_file_name_2interpolate", type=str, default="reference_B")
     d.add_argument("--ckpt_path_enc", type=str, default=default_enc)
     d.add_argument("--ckpt_path_conv", type=str, default=default_conv)
+    d.add_argument("--ckpt_path_sep", type=str, default=default_sep,
+                   help="HTDemucs state dict (Demucs's names) for --separation_model htdemucs")
     d.add_argument("--precomputed_normalization_feature", type=str, default=default_feat)
 
     i = p.add_argument_group("Inference args")
@@ -138,7 +146,12 @@ def main(argv=None) -> int:
     output_dir = args.output_dir or args.target_dir
     save_run_config(args, output_dir)
 
-    if not args.do_not_separate:
+    separator = None
+    if not args.do_not_separate and args.separation_model == "htdemucs":
+        from ..models.htdemucs import HTDemucsSeparator
+
+        separator = HTDemucsSeparator(ckpt=args.ckpt_path_sep, device=engine.device)
+    elif not args.do_not_separate:
         names = [args.input_file_name, args.reference_file_name]
         if args.interpolation:
             names.append(args.reference_file_name_2interpolate)
@@ -168,7 +181,7 @@ def main(argv=None) -> int:
             device=args.inference_device,
         )
 
-    pipeline = MixingStyleTransfer(engine, cfg, normalizer=normalizer)
+    pipeline = MixingStyleTransfer(engine, cfg, normalizer=normalizer, separator=separator)
     written = pipeline.run_directory(args.target_dir, args.output_dir)
     log.info("wrote %d mixtures", len(written))
     return 0

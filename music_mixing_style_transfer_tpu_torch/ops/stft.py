@@ -135,6 +135,38 @@ def compute_istft(
     return y.T
 
 
+def demucs_spec(x: torch.Tensor, nfft: int) -> torch.Tensor:
+    """HTDemucs's input spectrogram (``htdemucs.py:_spec``): ``x [..., T]``
+    reflect-padded by ``3*hop/2`` on the left and up to ``le*hop + 3*hop/2``
+    on the right (``le = ceil(T/hop)``, ``hop = nfft//4``), a centred STFT
+    with a periodic Hann window scaled by ``nfft**-0.5`` (torch's
+    ``normalized=True``), the last bin dropped and frames ``[2, 2+le)``
+    kept: complex ``[..., nfft//2, le]``."""
+    hop = nfft // 4
+    T = x.shape[-1]
+    le = -(-T // hop)
+    pad = hop // 2 * 3
+    x = reflect_pad(x, pad, pad + le * hop - T)
+    z = stft(x, nfft, hop, hann_window(nfft), center=True) * nfft**-0.5
+    return z.transpose(-1, -2)[..., :-1, 2 : 2 + le]
+
+
+def demucs_ispec(z: torch.Tensor, length: int) -> torch.Tensor:
+    """The inverse of :func:`demucs_spec` (``htdemucs.py:_ispec``): the
+    dropped bin and two frames on each side put back as zeros, a centred
+    inverse STFT (``normalized=True``), then ``3*hop/2`` trimmed from the
+    start and the rest cut to ``length``."""
+    nbins, le = z.shape[-2:]
+    nfft = 2 * nbins
+    hop = nfft // 4
+    full = z.new_zeros(*z.shape[:-2], nbins + 1, le + 4)
+    full[..., :nbins, 2 : 2 + le] = z
+    pad = hop // 2 * 3
+    y = istft(full.transpose(-1, -2) * nfft**0.5, hop, hann_window(nfft), center=True,
+              length=hop * -(-length // hop) + 2 * pad)
+    return y[..., pad : pad + length]
+
+
 def slicing(
     x, win_length: int, hop_length: int, center: bool = True, windowing: bool = False,
     pad: int = 0,

@@ -14,6 +14,8 @@ Endpoints (JSON over POST unless noted):
 - ``POST /transfer``    -> body {"target_dir": ..., "output_dir": ...,
                            optional "interpolation": bool}
                            runs the directory pipeline, returns written paths
+                           (stems, or with --separation_model htdemucs the
+                           mixtures, separated in-process)
 - ``POST /embed``       -> body {"wav": path, "segment_length": int?}
                            returns the 2048-D FX embedding
 - ``POST /warmup``      -> body {"seconds": float?} runs the request path on
@@ -129,10 +131,12 @@ class StyleTransferService:
         inference_cfg: Optional[InferenceConfig] = None,
         normalizer=None,
         max_queue: int = 4,
+        separator=None,
     ):
         self.engine = engine
         self.cfg = inference_cfg or InferenceConfig()
         self.normalizer = normalizer
+        self.separator = separator
         self.admission = AdmissionQueue(max_queue)
         self.requests = 0
 
@@ -141,21 +145,24 @@ class StyleTransferService:
         try:
             self.requests += 1
             cfg = dataclasses.replace(self.cfg, interpolation=interpolation)
-            pipeline = MixingStyleTransfer(self.engine, cfg, normalizer=self.normalizer)
+            pipeline = MixingStyleTransfer(self.engine, cfg, normalizer=self.normalizer,
+                                           separator=self.separator)
             return pipeline.run_directory(target_dir, output_dir)
         finally:
             self.admission.release()
 
     def warmup(self, seconds: float = 30.0):
         """Run the request path (PCM stem stacks through
-        ``transfer_song_pcm``, then an embedding) on a synthetic song of
+        ``transfer_song_pcm``, or mixtures through ``transfer_mix_pcm`` when
+        the service separates, then an embedding) on a synthetic song of
         ``seconds`` twice, before traffic, and return both wall times. The
         first run pays the one-time costs: the kernels' builds, cuDNN's
         algorithm choice, the allocator's first blocks."""
         self.admission.acquire_if_idle()
         try:
             cfg = self.cfg
-            pipeline = MixingStyleTransfer(self.engine, cfg, normalizer=self.normalizer)
+            pipeline = MixingStyleTransfer(self.engine, cfg, normalizer=self.normalizer,
+                                           separator=self.separator)
             rng = np.random.default_rng(0)
             S = len(cfg.instruments)
             T = int(seconds * cfg.sample_rate)
@@ -166,7 +173,10 @@ class StyleTransferService:
             out = {"seconds": seconds}
             for key in ("cold_s", "warm_s"):
                 t0 = time.perf_counter()
-                mix, _ = pipeline.transfer_song_pcm(pcm(), pcm())
+                if pipeline.separates_in_process():  # mixtures, separated first
+                    mix, _ = pipeline.transfer_mix_pcm(pcm()[0], pcm()[0])
+                else:
+                    mix, _ = pipeline.transfer_song_pcm(pcm(), pcm())
                 self.engine.embed_song(pcm()[0].astype(np.float32) / 32768.0, cfg.segment_length_ref)
                 if mix.shape != (2, T):
                     raise RuntimeError(f"warmup: mixture of shape {mix.shape}, expected {(2, T)}")
@@ -276,6 +286,11 @@ def main(argv=None) -> int:
                    "before accepting traffic (0 = off); also POST /warmup {\"seconds\": N}")
     p.add_argument("--inference_device", type=str, default="cuda",
                    help="torch device for the networks: cuda (default) or cpu")
+    p.add_argument("--separation_model", type=str, default=None, choices=["htdemucs"],
+                   help="/transfer reads <song>/{input,reference}.wav mixtures and separates "
+                   "them in-process with HTDemucs (default: pre-separated stems)")
+    p.add_argument("--ckpt_path_sep", type=str, default=None,
+                   help="HTDemucs state dict (Demucs's names); seeded random weights without")
     args = p.parse_args(argv)
     # sequence parallelism only exists on a mesh, through the PCM fast path:
     # fail loudly instead of serving segmented output (JAX serve.py:314-324)
@@ -303,11 +318,19 @@ def main(argv=None) -> int:
         normalizer = AudioEffectsNormalizer(
             args.precomputed_normalization_feature, device=args.inference_device
         )
+    separator = None
+    if args.separation_model == "htdemucs":
+        from .models.htdemucs import HTDemucsSeparator
+
+        separator = HTDemucsSeparator(ckpt=args.ckpt_path_sep, device=engine.device)
     cfg = InferenceConfig(
-        do_not_separate=True, normalize_input=normalizer is not None, dtype=args.dtype,
+        do_not_separate=separator is None,
+        separation_model=args.separation_model or InferenceConfig.separation_model,
+        normalize_input=normalizer is not None, dtype=args.dtype,
         segment_halo=args.segment_halo, sequence_parallel=args.sequence_parallel,
     )
-    service = StyleTransferService(engine, cfg, normalizer, max_queue=args.max_queue)
+    service = StyleTransferService(engine, cfg, normalizer, max_queue=args.max_queue,
+                                   separator=separator)
     if args.warmup_seconds > 0:
         log.info("warming up (%.1fs synthetic song) before accepting traffic", args.warmup_seconds)
         service.warmup(args.warmup_seconds)

@@ -116,6 +116,48 @@ def test_a_traced_song_opens_every_serving_span_inside_its_request(tmp_path, rng
     assert profiling.records("ops.cuda.tcn_block") == []  # the tiny converter has no K1 block
 
 
+def test_a_traced_mixture_opens_the_separation_spans_inside_its_request(rng, monkeypatch):
+    """``transfer_mix_pcm`` on two mixtures of 3 chunks (dispatches of 2
+    and 1): the separation's spans inside the one request, a counter record
+    a dispatch; without a profiler, no range and no record."""
+    from music_mixing_style_transfer_tpu_torch.models.htdemucs import (
+        HTDemucsConfig,
+        HTDemucsSeparator,
+    )
+
+    names = ("separate.htdemucs", "separate.htdemucs.spec", "separate.htdemucs.unet",
+             "separate.htdemucs.transformer")
+    sep = HTDemucsSeparator(HTDemucsConfig(nfft=2048, channels=8, bottom_channels=16, t_heads=2,
+                                           segment=0.25, batch=2), device="cpu")
+    pipe = _pipeline()
+    pipe = MixingStyleTransfer(pipe.engine, pipe.cfg, separator=sep)
+    mixes = [_pcm(rng, T)[0] for T in (20000, 19000)]
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        profiling.clear()
+        pipe.transfer_mix_pcm(*mixes)
+        assert profiling.records("separate.htdemucs") == profiling.records("infer.request") == []
+    with profiling.trace() as prof:
+        mixture, _ = pipe.transfer_mix_pcm(*mixes)
+    assert mixture.shape == (2, 20000)
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name() in names + ("infer.request",):
+            spans.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert set(spans) == set(names) | {"infer.request"}
+    ((r0, r1),) = spans["infer.request"]
+    assert all(r0 <= a <= b <= r1 for ivs in spans.values() for a, b in ivs)
+    assert len(spans["separate.htdemucs"]) == 2 and len(spans["separate.htdemucs.transformer"]) == 4
+    assert profiling.records("infer.request") == [{"samples": 20000, "ok": True}]
+    tok = {"freq_tokens": 4 * 22, "time_tokens": 44}  # 1024 / 4^4 bins x 22 frames; 11025 / 4^4
+    assert profiling.records("separate.htdemucs") == [
+        dict(samples=T, chunks=3, batch=b, **tok) for T in (20000, 19000) for b in (2, 1)]
+
+
 def test_a_request_that_runs_out_of_memory_is_recorded_and_reraised(rng, monkeypatch):
     pipe = _pipeline()
     err = torch.OutOfMemoryError("CUDA out of memory (planted)")
